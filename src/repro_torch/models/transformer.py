@@ -1,0 +1,74 @@
+"""Dense decoder stack (port of the dense part of ``repro/models/transformer.py``).
+
+Layer parameters are stacked on a leading ``L`` axis, as the reference's
+vmapped init leaves them, and the stack is a Python loop over layers (the
+reference's ``lax.scan``).  The KV cache is one real (L, B, Smax, Hkv, D)
+tensor per K and V; each layer reads and writes its own slice in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import attn_apply, attn_decode, init_attn, init_kv_cache
+from repro_torch.models.layers import ones_init, rmsnorm
+from repro_torch.models.mlp import init_swiglu, swiglu_apply
+
+
+def init_decoder_layer(generator, cfg, layers: int | None = None, device="cuda") -> dict:
+    lead = () if layers is None else (layers,)
+    return {
+        "ln1": ones_init((*lead, cfg.d_model), torch.float32, device),
+        "attn": init_attn(generator, cfg, layers, device),
+        "ln2": ones_init((*lead, cfg.d_model), torch.float32, device),
+        "mlp": init_swiglu(generator, cfg, layers, device),
+    }
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
+
+
+def decoder_layer_apply(p, x, cfg, positions):
+    """Returns the layer output and the layer's roped K and V."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, k, v = attn_apply(p["attn"], h, cfg, positions)
+    x = x + a
+    h = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    return x + swiglu_apply(p["mlp"], h), k, v
+
+
+def decoder_layer_decode(p, x_t, cache, pos, cfg):
+    h = rmsnorm(x_t, p["ln1"], cfg.norm_eps)
+    a, cache = attn_decode(p["attn"], h, cache, pos, cfg)
+    x_t = x_t + a
+    h = rmsnorm(x_t, p["ln2"], cfg.norm_eps)
+    return x_t + swiglu_apply(p["mlp"], h[:, None, :])[:, 0], cache
+
+
+def init_dense_stack(generator, cfg, device="cuda") -> dict:
+    return init_decoder_layer(generator, cfg, layers=cfg.n_layers, device=device)
+
+
+def dense_stack_apply(stacked, x, cfg, positions, kv_out: dict | None = None):
+    """Run every layer over the full sequence.  With ``kv_out`` (a cache of
+    length S), each layer's K and V are written into it."""
+    for i in range(cfg.n_layers):
+        x, k, v = decoder_layer_apply(layer_params(stacked, i), x, cfg, positions)
+        if kv_out is not None:
+            kv_out["k"][i].copy_(k)
+            kv_out["v"][i].copy_(v)
+    return x
+
+
+def dense_stack_decode(stacked, x_t, cache, pos, cfg):
+    for i in range(cfg.n_layers):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        x_t, _ = decoder_layer_decode(layer_params(stacked, i), x_t, layer_cache, pos, cfg)
+    return x_t, cache
+
+
+def init_dense_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
+    """A real zero cache (L, B, Smax, Hkv, D), not a broadcast view: decode
+    writes into it in place."""
+    return init_kv_cache(cfg, batch, max_len, layers=cfg.n_layers, device=device)

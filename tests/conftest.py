@@ -22,3 +22,8 @@ else:
         suppress_health_check=[HealthCheck.too_slow, HealthCheck.data_too_large],
     )
     settings.load_profile("ci")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an sm_90 CUDA card; skipped on machines without one")

@@ -1,0 +1,39 @@
+"""The port stands alone: every ``repro_torch`` module imports with ``jax``,
+``repro`` and ``triton`` blocked.  Runs in a subprocess so that no pytest
+worker loses the JAX modules it already holds."""
+import os
+import pathlib
+import subprocess
+import sys
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_CHILD = r"""
+import importlib, pkgutil, sys
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "triton"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+import repro_torch
+
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_repro_torch_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _CHILD], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25, out.stdout
