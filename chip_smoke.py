@@ -38,7 +38,14 @@ GOLDEN = ROOT / "tests" / "golden" / "train_agent_proxy_v1.npz"
 # H100 SXM data sheet, dense: HBM3 rate; bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-TOL = {"bfloat16": 3e-2, "float32": 3e-5}
+# Each output row (one query head of one token, or one token's logits) is
+# held against the plain version's by its relative L2 error
+# ||out - ref|| / ||ref||, which scales with the row: a bf16 row that attends
+# over thousands of keys has entries near 1e-2, where an absolute bound of
+# the same order passes a row that lost part of its keys.  Rounding the
+# output to bf16 alone costs about 2e-3.  A row whose reference is 0 (no
+# visible key) must be exactly 0.
+ROW_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 PREFILL_STEPS, DECODE_STEPS = 12, 8
 SHARES = {"prefill": 0.75, "decode": 0.25}      # examples/co_schedule.py
 
@@ -95,14 +102,22 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(torch, out, ref, dtype_name: str, what: str) -> float:
+def row_rel_err(torch, out, ref) -> float:
+    """The largest ||out - ref|| / ||ref|| over the last axis's rows."""
+    diff = (out.float() - ref.float()).flatten(0, -2).norm(dim=-1)
+    size = ref.float().flatten(0, -2).norm(dim=-1)
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / size).max().item()
+
+
+def compare(torch, out, ref, dtype_name: str, what: str) -> dict:
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         fail(f"{what}: shape {tuple(out.shape)} vs {tuple(ref.shape)} or non-finite output")
-    err = (out.float() - ref.float()).abs()
-    tol = TOL[dtype_name]
-    if (err > tol + tol * ref.float().abs()).any():
-        fail(f"{what}: max abs error {err.max().item():.3e} above tolerance {tol:g}")
-    return err.max().item()
+    rel = row_rel_err(torch, out, ref)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not rel <= ROW_TOL[dtype_name]:
+        fail(f"{what}: row relative error {rel:.3e} above tolerance {ROW_TOL[dtype_name]:g} "
+             f"(max abs error {err:.3e})")
+    return {"max_abs_err": err, "row_rel_err": rel}
 
 
 def show(rec: dict) -> str:
@@ -131,8 +146,7 @@ def decode_case(torch, dtype, lengths, smax=32768, hq=32, hkv=8, d=128, timed=Tr
         v[b, n:] = -3e4
     out = decode_attention(q, k, v, lens)
     ref = decode_attention_plain(q, k, v, lens)
-    err = compare(torch, out, ref, name, f"decode_attention {name} lengths={lengths}")
-    rec = {"max_abs_err": err}
+    rec = compare(torch, out, ref, name, f"decode_attention {name} lengths={lengths}")
     if timed:
         esize = q.element_size()
         rows = sum(lengths)
@@ -145,7 +159,7 @@ def decode_case(torch, dtype, lengths, smax=32768, hq=32, hkv=8, d=128, timed=Tr
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True), 10)
     say(f"[1] decode_attention {name} B={B} Smax={smax} Hq={hq} Hkv={hkv} D={d} "
-        f"lengths={lengths}: {show(rec)} tol={TOL[name]:g}")
+        f"lengths={lengths}: {show(rec)} row_tol={ROW_TOL[name]:g}")
     return rec
 
 
@@ -162,8 +176,7 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True)
     v = torch.randn((1, skv, hkv, d), generator=gen, device="cuda").to(dtype)
     out = flash_attention(q, k, v, causal=True)
     ref = flash_attention_plain(q, k, v, causal=True)
-    err = compare(torch, out, ref, name, f"flash_attention {name} Sq={sq} Skv={skv}")
-    rec = {"max_abs_err": err}
+    rec = compare(torch, out, ref, name, f"flash_attention {name} Sq={sq} Skv={skv}")
     if timed:
         esize = q.element_size()
         pairs = float(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())   # visible (q, k)
@@ -176,7 +189,7 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, enable_gqa=True), 10)
     say(f"[1] flash_attention {name} B=1 Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} causal: "
-        f"{show(rec)} tol={TOL[name]:g}")
+        f"{show(rec)} row_tol={ROW_TOL[name]:g}")
     return rec
 
 
@@ -352,11 +365,11 @@ def phase_pair(torch, card):
         got, ref = logits_of(t.state), logits_of(solo[t.name][1])
         if got.shape != ref.shape or not torch.isfinite(got).all():
             fail(f"{t.name}: logits of shape {tuple(got.shape)} or non-finite")
-        err = (got - ref).abs().max().item()
-        if err > TOL["bfloat16"] * (1 + ref.abs().max().item()):
-            fail(f"{t.name}: co-run logits differ from the solo run's by {err:.3e}")
+        rel = row_rel_err(torch, got, ref)
+        if not rel <= ROW_TOL["bfloat16"]:
+            fail(f"{t.name}: co-run logits differ from the solo run's by {rel:.3e} (row relative)")
         say(f"[3] {t.name}: logits {tuple(got.shape)} finite; co-run vs solo max abs diff "
-            f"{err:.3e}")
+            f"{(got - ref).abs().max().item():.3e}, row relative {rel:.3e}")
     return launches
 
 
@@ -366,7 +379,7 @@ def phase_reference(torch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import model as tm
 
-    cfg = get_smoke_config("llama3-8b").replace(d_head=64, dtype="float32")
+    cfg = get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")   # the kernels' D
     cpu = tm.init_params(cfg, seed=3, device="cpu")
 
     def to(tree):
@@ -391,7 +404,7 @@ def phase_reference(torch):
         if (err > 2e-3 + 2e-2 * ref.abs()).any():
             fail(f"small model: card logits differ from the CPU's by {err.max().item():.3e}")
         worst = max(worst, err.max().item())
-    say(f"[3] small model ({cfg.name}, D=64, f32): card == CPU within 2e-3 + 2e-2|x| "
+    say(f"[3] small model ({cfg.name}, D=128, f32): card == CPU within 2e-3 + 2e-2|x| "
         f"(max abs diff {worst:.2e})")
 
 

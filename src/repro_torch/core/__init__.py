@@ -1,7 +1,7 @@
 """The paper's RL co-scheduler: profiles, partition space, co-run model,
 scalar environment, greedy DQN agent and the online scheduler (serving
 side only; training is not ported yet)."""
-from repro_torch.core.agent import DQNAgent, DQNConfig
+from repro_torch.core.agent import DQNAgent
 from repro_torch.core.env import (
     CoScheduleEnv, DispatchContext, EnvConfig, ObsContext, dispatch_obs_context,
     zero_context,
@@ -15,7 +15,7 @@ from repro_torch.core.scheduler import RLScheduler
 from repro_torch.core.workloads import make_queue, make_zoo, paper_queues
 
 __all__ = [
-    "CoScheduleEnv", "DQNAgent", "DQNConfig", "DispatchContext", "EnvConfig",
+    "CoScheduleEnv", "DQNAgent", "DispatchContext", "EnvConfig",
     "JobProfile", "ObsContext", "Partition", "ProfileRepository",
     "RLScheduler", "Schedule", "Slice", "analytic_profile", "corun",
     "corun_time", "dispatch_obs_context", "enumerate_partitions",

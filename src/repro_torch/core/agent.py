@@ -3,13 +3,11 @@
 Port of the serving half of ``repro/core/agent.py``.  ``DQNAgent`` holds
 the online parameters on a device and answers ``act(state, mask,
 greedy=True)`` through :func:`~repro_torch.core.network.greedy_q_action`,
-the one action-selection implementation.  Exploration, replay and the
-double-DQN update belong to the training side of the reference and are not
-part of this package yet.
+the one action-selection implementation.  Exploration, replay, the
+double-DQN update and their settings (the reference's ``DQNConfig``) belong
+to the training side of the reference and are not part of this package yet.
 """
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -17,31 +15,15 @@ import torch
 from repro_torch.core.network import greedy_q_action, init_dqn
 
 
-@dataclass(frozen=True)
-class DQNConfig:
-    gamma: float = 0.99
-    lr: float = 5e-4
-    batch_size: int = 128
-    buffer_size: int = 100_000
-    target_sync: int = 500           # updates between target-network syncs
-    eps_start: float = 1.0
-    eps_end: float = 0.01
-    eps_decay_steps: int = 15_000    # env steps for linear ε decay
-    huber_delta: float = 1.0
-    reward_scale: float = 0.01       # rewards are O(100); keep TD targets O(1)
-
-
 class DQNAgent:
     """Greedy DQN policy on ``device`` (the card unless the caller asks for
     the CPU)."""
 
-    def __init__(self, state_dim: int, n_actions: int, cfg: DQNConfig | None = None,
-                 seed: int = 0, device: str | torch.device = "cuda",
-                 params: dict | None = None):
+    def __init__(self, state_dim: int, n_actions: int, seed: int = 0,
+                 device: str | torch.device = "cuda", params: dict | None = None):
         # f32 Q-values must not be rounded through TF32 on the card: a
         # near-tie between two actions would flip against the reference
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.cfg = cfg or DQNConfig()
         self.device = torch.device(device)
         if params is None:
             gen = torch.Generator().manual_seed(seed)

@@ -119,9 +119,10 @@ static int launch(const void* q, const void* k, const void* v, const int* length
 }  // namespace repro_torch
 
 // q (B, Hq, D); k, v (B, Smax, Hkv, D); lengths (B,) int32; out (B, Hq, D);
-// all contiguous, on one device.  part_acc holds B*Hkv*n_split*g*D floats,
-// part_ml B*Hkv*n_split*g*2.  dtype: 0 = bfloat16, 1 = float32.  Returns a
-// cudaError_t; a shape the kernel does not take returns -1.
+// all contiguous, on one device; D = 128 (llama3-8b's heads).  part_acc
+// holds B*Hkv*n_split*g*D floats, part_ml B*Hkv*n_split*g*2.  dtype:
+// 0 = bfloat16, 1 = float32.  Returns a cudaError_t; a shape the kernel does
+// not take returns -1.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* lengths, void* out, float* part_acc,
                                        float* part_ml, int B, int Hq, int Hkv, int Smax, int D,
@@ -133,9 +134,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
 #define REPRO_DECODE(T, DD) \
   return launch<T, DD>(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split, chunk, scale, s)
   if (dtype == 0 && D == 128) REPRO_DECODE(__nv_bfloat16, 128);
-  if (dtype == 0 && D == 64) REPRO_DECODE(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) REPRO_DECODE(float, 128);
-  if (dtype == 1 && D == 64) REPRO_DECODE(float, 64);
 #undef REPRO_DECODE
   return -1;
 }

@@ -295,8 +295,9 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, int 
 }  // namespace repro_torch
 
 // q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); o (B, Sq, Hq, D); contiguous, one
-// device.  dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores).
-// Returns a cudaError_t; a shape the kernel does not take returns -1.
+// device; D = 128 (llama3-8b's heads).  dtype: 0 = bfloat16 (tensor cores),
+// 1 = float32 (CUDA cores).  Returns a cudaError_t; a shape the kernel does
+// not take returns -1.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int Skv, int Hq, int Hkv, int D, int dtype,
                                       int causal, float scale, void* stream) {
@@ -304,8 +305,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 128) return launch_bf16<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-  if (dtype == 0 && D == 64) return launch_bf16<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
   if (dtype == 1 && D == 128) return launch_f32<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 64) return launch_f32<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
   return -1;
 }

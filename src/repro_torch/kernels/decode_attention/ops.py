@@ -77,7 +77,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None
         raise ValueError(f"decode_attention: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError("decode_attention: lengths must be int32")
-    if Hq % Hkv or Hq // Hkv > _MAX_GROUP or D not in (64, 128):
+    if Hq % Hkv or Hq // Hkv > _MAX_GROUP or D != 128:
         raise ValueError(f"decode_attention: Hq={Hq}, Hkv={Hkv}, D={D} not supported")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()
             and lengths.is_contiguous()):

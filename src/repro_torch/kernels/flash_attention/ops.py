@@ -71,7 +71,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
                          f"v {tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv or D not in (64, 128) or Sq == 0 or Skv == 0:
+    if Hq % Hkv or D != 128 or Sq == 0 or Skv == 0:
         raise ValueError(f"flash_attention: Hq={Hq}, Hkv={Hkv}, D={D}, Sq={Sq}, Skv={Skv} "
                          "not supported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

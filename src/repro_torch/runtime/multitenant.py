@@ -66,10 +66,10 @@ def fuse_tenants(tenants: list[Tenant], quanta_per_cycle: int = 4):
     quanta = [max(1, round(t.share / total * quanta_per_cycle * len(tenants)))
               for t in tenants]
 
-    def macro(states, live=None):
+    def macro(states, live):
         out = []
         for i, (t, st, q) in enumerate(zip(tenants, states, quanta)):
-            if live is None or live[i]:
+            if live[i]:
                 with _on(t.stream):
                     for _ in range(q):
                         st = t.step_fn(st)

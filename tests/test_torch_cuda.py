@@ -19,7 +19,18 @@ from repro_torch.runtime.multitenant import FusedCoRunner, Tenant
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+# largest ||out - ref|| / ||ref|| over the output rows (one query head of
+# one token); it scales with the row, so a row that lost part of its keys
+# fails even where its entries are small.  A row whose reference is 0 must
+# be exactly 0.  chip_smoke.py holds the kernels to the same bound.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _assert_rows_close(out, ref, dtype):
+    diff = (out.float() - ref.float()).flatten(0, -2).norm(dim=-1)
+    size = ref.float().flatten(0, -2).norm(dim=-1)
+    rel = torch.where(diff == 0, torch.zeros_like(diff), diff / size).max().item()
+    assert rel <= ROW_TOL[dtype], f"row relative error {rel:.3e} above {ROW_TOL[dtype]:g}"
 
 
 @pytest.fixture
@@ -35,11 +46,10 @@ def _randn(rng, shape, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("group", [1, 4, 8])
-def test_decode_kernel_matches_plain(card, dtype, D, group):
-    rng = np.random.default_rng(D * 10 + group)
-    B, Smax, Hkv = 5, 1000, 2
+def test_decode_kernel_matches_plain(card, dtype, group):
+    rng = np.random.default_rng(group)
+    B, Smax, Hkv, D = 5, 1000, 2, 128
     q = _randn(rng, (B, Hkv * group, D), dtype, card)
     k = _randn(rng, (B, Smax, Hkv, D), dtype, card)
     v = _randn(rng, (B, Smax, Hkv, D), dtype, card)
@@ -53,16 +63,15 @@ def test_decode_kernel_matches_plain(card, dtype, D, group):
     assert decode_attention.launches == before + 1
     ref = decode_attention_plain(q, k, v, lens)
     assert torch.all(out[3] == 0), "a row of length 0 gives 0"
-    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    _assert_rows_close(out, ref, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("Sq,Skv,causal", [(200, 200, True), (77, 333, True),
                                            (333, 77, True), (130, 250, False)])
-def test_flash_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
+def test_flash_kernel_matches_plain(card, dtype, Sq, Skv, causal):
     rng = np.random.default_rng(Sq * 7 + Skv)
-    B, Hq, Hkv = 2, 4, 2
+    B, Hq, Hkv, D = 2, 4, 2, 128
     q = _randn(rng, (B, Sq, Hq, D), dtype, card)
     k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
     v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
@@ -71,12 +80,12 @@ def test_flash_kernel_matches_plain(card, dtype, D, Sq, Skv, causal):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref = flash_attention_plain(q, k, v, causal=causal)
-    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    _assert_rows_close(out, ref, dtype)
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
-    q = torch.zeros((1, 4, 16), device=card)        # D = 16
-    kv = torch.zeros((1, 8, 2, 16), device=card)
+    q = torch.zeros((1, 4, 64), device=card)        # D = 64: the kernels take 128
+    kv = torch.zeros((1, 8, 2, 64), device=card)
     with pytest.raises(ValueError):
         decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
     with pytest.raises(ValueError):
@@ -84,8 +93,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
 
 
 def _small_cfg():
-    # smoke widths, but heads of 64: the kernels take D in {64, 128}
-    return get_smoke_config("llama3-8b").replace(d_head=64, dtype="float32")
+    # smoke widths, but heads of 128, the only D the kernels take
+    return get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")
 
 
 def test_model_on_card_matches_cpu(card):

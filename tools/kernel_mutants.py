@@ -1,0 +1,70 @@
+#!/usr/bin/env python3
+"""Show that ``chip_smoke.py``'s kernel checks fail kernels with planted faults.
+
+    python3 tools/kernel_mutants.py
+
+For each fault below it copies ``chip_smoke.py`` and ``src/`` of this
+checkout into a temporary directory, plants the fault in the copy's CUDA
+source, and runs the copy's phases 0 and 1 (build, then each kernel against
+its plain version at the main path's shapes) on the card.  Each run must
+fail; the script prints the failure and exits non-zero if a faulty kernel
+passes.  The checkout itself is never changed.  Needs an sm_90 card and
+``nvcc``.
+
+The faults touch only the bfloat16 code and lose a small share of a long
+row's keys, where the row's entries are near 1e-2: what an absolute bound of
+that order cannot see.
+"""
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+MUTANTS = {
+    "decode_attention: the combine pass drops the first split of every bf16 row "
+    "longer than one split": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "    for (int s = 0; s < n_seen; ++s) {\n",
+        "    for (int s = (sizeof(T) == 2 && n_seen > 1); s < n_seen; ++s) {\n"),
+    "flash_attention: bf16 q tiles that see more than 16 kv tiles skip the last one": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "  for (int kt = 0; kt < n_kt; ++kt) {\n",
+        "  for (int kt = 0; kt < n_kt - (n_kt > 16); ++kt) {\n"),
+}
+
+KERNEL_PHASES = ("import torch, chip_smoke as c; "
+                 "c.phase_kernels(torch, c.phase_card(torch))")
+
+
+def main() -> int:
+    caught = 0
+    for what, (path, old, new) in MUTANTS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            shutil.copy(ROOT / "chip_smoke.py", tmp)
+            shutil.copytree(ROOT / "src", Path(tmp) / "src",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            src = Path(tmp) / path
+            text = src.read_text()
+            if text.count(old) != 1:
+                raise SystemExit(f"kernel_mutants: the site of '{what}' is not in {path}")
+            src.write_text(text.replace(old, new))
+            run = subprocess.run([sys.executable, "-c", KERNEL_PHASES], cwd=tmp,
+                                 capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in (run.stdout + run.stderr).splitlines()
+                 if ln.startswith(("[1]", "chip_smoke"))]
+        failed = run.returncode != 0 and any("FAILED" in ln for ln in lines)
+        caught += failed
+        print(f"{'caught' if failed else 'MISSED'}: {what}", flush=True)
+        for ln in lines:
+            print(f"    {ln}", flush=True)
+    print(f"kernel_mutants: {caught} of {len(MUTANTS)} planted faults caught", flush=True)
+    return 0 if caught == len(MUTANTS) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
