@@ -9,7 +9,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and power limit and builds the CUDA kernels from ``src/repro_torch/csrc``.
 1. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, in bfloat16 and float32, timed beside its bound
-   and beside one PyTorch library call computing the same function.
+   and beside one PyTorch library call computing the same function.  RMSNorm
+   runs at the llama3-8b prefill tenant's residual stream (8192 x 4096, bf16
+   and f32) and at a ragged 1000 x 4100 (bf16) and 1000 x 4101 (f32), whose
+   rows fill no whole block and whose d leaves a scalar head and tail beside
+   the 16-byte vectors; no path of the package calls it, so its wrapper's
+   own entry point is its path.
 2. The RL co-scheduler: the trained agent of ``tests/golden`` schedules the
    paper queues on the card; its greedy actions must equal the same agent's
    on the CPU, and every schedule must satisfy the problem's constraints.
@@ -19,6 +24,13 @@ Phases, each of which stops the run with a non-zero exit on failure:
    shares 0.75 / 0.25.  Both kernels must be launched by that run.  Each
    tenant then runs alone (time sharing) and must give the same outputs; a
    small model must give the same logits on the card as on the CPU.
+4. Training the co-scheduler on the card, with ``examples/co_schedule.py``'s
+   settings: the batched DQN engine (``train_agent``) for 1500 episodes over
+   16 envs at window 8, then the 12 paper queues scheduled by the trained
+   agent beside time sharing, MPS-only and the exhaustive oracle.  Every
+   schedule must be valid, the agent must stay at or under the oracle on
+   every queue and average above 1.1x time sharing, and its greedy actions on
+   the card must equal the same parameters' on the CPU.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -193,6 +205,29 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True)
     return rec
 
 
+def rmsnorm_case(torch, dtype, rows=8192, d=4096):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    name = str(dtype).split(".")[1]
+    gen = torch.Generator("cuda").manual_seed(13)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    scale = torch.randn((d,), generator=gen, device="cuda").to(dtype)
+    out = rmsnorm(x, scale, eps=1e-5)
+    ref = rmsnorm_plain(x, scale, eps=1e-5)
+    rec = compare(torch, out, ref, name, f"rmsnorm {name} {rows}x{d}")
+    esize = x.element_size()
+    # f32 arithmetic on the CUDA cores (square-add, two multiplies a value)
+    rec["bound_ms"], rec["bound_by"] = bound((2 * rows * d + d) * esize, 4.0 * rows * d,
+                                             "float32")
+    rec["ms"] = time_ms(torch, lambda: rmsnorm(x, scale, eps=1e-5), 50)
+    rec["plain_ms"] = time_ms(torch, lambda: rmsnorm_plain(x, scale, eps=1e-5), 10)
+    rec["library_ms"] = time_ms(torch, lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-5), 50)
+    say(f"[1] rmsnorm {name} rows={rows} d={d} eps=1e-5: {show(rec)} row_tol={ROW_TOL[name]:g}")
+    return rec
+
+
 def phase_kernels(torch, card):
     say(f"[1] kernels against their plain versions on {card}")
     lengths = [32760, 20001, 1, 12345]    # ragged: not tile multiples, and a length of 1
@@ -203,6 +238,19 @@ def phase_kernels(torch, card):
     flash_case(torch, torch.float32)
     for dtype in (torch.bfloat16, torch.float32):                    # right-aligned, Sq < Skv
         flash_case(torch, dtype, sq=1000, skv=8192, timed=False)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    rmsnorm.launches = 0
+    recs["rmsnorm"] = rmsnorm_case(torch, torch.bfloat16)
+    rmsnorm_case(torch, torch.float32)
+    # ragged rows and d: bf16 rows alternate between no head and a 4-element
+    # tail and a 4-element head and no tail; f32 rows take each head and tail
+    # length from 0 to 3, where a lost tail moves a row by ~4e-4 (the bf16
+    # bound cannot see that; the f32 bound can)
+    rmsnorm_case(torch, torch.bfloat16, rows=1000, d=4100)
+    rmsnorm_case(torch, torch.float32, rows=1000, d=4101)
+    if rmsnorm.launches == 0:
+        fail("the rmsnorm wrapper launched no kernel")
     torch.cuda.empty_cache()
     return recs
 
@@ -325,23 +373,39 @@ def make_pair(torch):
     return steps, tenants
 
 
-def phase_pair(torch, card):
+def kernel_wrappers() -> dict:
+    """The launch-counting wrapper of every kernel, by name."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    return {"decode_attention": decode_attention, "flash_attention": flash_attention,
+            "rmsnorm": rmsnorm}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def phase_pair(torch, card):
     from repro_torch.runtime.multitenant import FusedCoRunner
 
     torch.cuda.reset_peak_memory_stats()
     steps, tenants = make_pair(torch)
-    flash_attention.launches = decode_attention.launches = 0
+    reset_launches()
     co = tenants(("prefill", "decode"))
     runner = FusedCoRunner(co, steps, quanta_per_cycle=4)
     finish = runner.run()
-    launches = {"flash_attention": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = read_launches()
     say(f"[3] co-run on two streams, quanta {dict(zip(steps, runner.quanta))}, kernel launches "
         f"{launches}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("flash_attention", "decode_attention"):
+        if launches[name] == 0:
             fail(f"the co-run launched no {name} kernel")
 
     solo = {}
@@ -408,6 +472,136 @@ def phase_reference(torch):
         f"(max abs diff {worst:.2e})")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training the co-scheduler
+# ---------------------------------------------------------------------------
+
+TRAIN_EPISODES, TRAIN_WINDOW = 1500, 8        # examples/co_schedule.py's defaults
+
+
+def train_config():
+    """examples/co_schedule.py's training configuration."""
+    from repro_torch.core.agent import DQNConfig
+    from repro_torch.core.train import TrainConfig
+
+    return TrainConfig(episodes=TRAIN_EPISODES, eval_every=TRAIN_EPISODES // 4, batch_envs=16,
+                       dqn=DQNConfig(eps_decay_steps=TRAIN_EPISODES * 6))
+
+
+def check_env_on_card(torch, zoo, env_cfg, n_envs=16):
+    """The batched environment on the card (its perfmodel replayed from a
+    CUDA graph) against the same on the CPU, on one stream of random valid
+    actions: equal observations, masks and dones, rewards within 1e-5
+    relative + 1e-4 (rewards are O(100) sums of f32 terms).  Also run by
+    ``tests/test_torch_cuda.py``."""
+    import numpy as np
+
+    from repro_torch.core import make_queue
+    from repro_torch.core.env import VecCoScheduleEnv
+    from repro_torch.core.workloads import QUEUE_KINDS
+
+    rng = np.random.default_rng(5)
+    queues = [make_queue(zoo, QUEUE_KINDS[i % len(QUEUE_KINDS)], env_cfg.window, rng)
+              for i in range(n_envs)]
+    envs = {d: VecCoScheduleEnv(env_cfg, d) for d in ("cpu", "cuda")}
+    live = {d: v.reset_batch(v.queue_batch(queues)) for d, v in envs.items()}
+    worst, steps = 0.0, 0
+    for _ in range(2 * env_cfg.window):
+        m = live["cpu"][2].numpy()
+        a = torch.from_numpy(np.array([rng.choice(np.flatnonzero(r)) if r.any() else 0
+                                      for r in m]))
+        out = {d: envs[d].step_batch(live[d][0], a.to(d)) for d in envs}
+        (s_c, o_c, r_c, d_c, m_c), (s_g, o_g, r_g, d_g, m_g) = out["cpu"], out["cuda"]
+        if not (torch.equal(o_g.cpu(), o_c) and torch.equal(m_g.cpu(), m_c)
+                and torch.equal(d_g.cpu(), d_c)):
+            fail("the environment on the card differs from the CPU's")
+        err = (r_g.cpu() - r_c).abs()
+        if (err > 1e-4 + 1e-5 * r_c.abs()).any():
+            fail(f"environment rewards on the card differ from the CPU's by {err.max():.3e}")
+        worst, steps = max(worst, err.max().item()), steps + 1
+        live = {"cpu": (s_c, o_c, m_c), "cuda": (s_g, o_g, m_g)}
+        if d_c.all():
+            break
+    if envs["cuda"]._metrics.replays == 0:
+        fail("the environment on the card never replayed its perfmodel's CUDA graph")
+    say(f"[4] environment: {n_envs} envs x {steps} steps on the card (perfmodel from a CUDA "
+        f"graph, {envs['cuda']._metrics.replays} replays) == CPU; rewards within "
+        f"{worst:.2e}")
+
+
+def phase_train(torch, card):
+    import numpy as np
+
+    from repro_torch.core import (
+        EnvConfig, RLScheduler, make_zoo, paper_queues, validate_schedule,
+    )
+    from repro_torch.core.agent import DQNAgent
+    from repro_torch.core.baselines import POLICIES
+    from repro_torch.core.metrics import summarize
+    from repro_torch.core.train import train_agent
+
+    zoo = make_zoo()
+    env_cfg = EnvConfig(window=TRAIN_WINDOW, c_max=4)
+    check_env_on_card(torch, zoo, env_cfg)
+    cfg = train_config()
+    say(f"[4] training the DQN co-scheduler on {card}: {len(zoo)} zoo jobs, window "
+        f"{env_cfg.window}, {cfg.episodes} episodes over {cfg.batch_envs} envs")
+    segments = []
+    reset_launches()
+    t0 = time.perf_counter()
+    agent, hist = train_agent(zoo, env_cfg, cfg, device="cuda",
+                              on_segment=lambda n, sec: segments.append((n, sec)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for rec in hist:
+        say(f"[4] {json.dumps(rec)}")
+    steps = sum(n for n, _ in segments)
+    seg_s = sum(sec for _, sec in segments)
+    episodes = hist[-1]["episode"]
+    say(f"[4] {episodes} episodes in {wall:.1f} s ({episodes / wall:.1f} episodes/s), "
+        f"{steps} engine steps of {cfg.batch_envs} envs at {1e3 * seg_s / steps:.2f} ms each, "
+        f"{agent.updates} updates; greedy evaluation {wall - seg_s:.1f} s  ({card})")
+    for name, rec in (("eval_throughput", hist[-1]["eval_throughput"]),
+                      ("heldout_throughput", hist[-1]["heldout_throughput"])):
+        if rec is None or not np.isfinite(rec):
+            fail(f"training: final {name} is {rec}")
+
+    queues = paper_queues(zoo, window=TRAIN_WINDOW)
+    cpu_agent = DQNAgent(agent.params["w0"].shape[0], agent.params["wA"].shape[1], cfg.dqn,
+                         device="cpu", params={k: v.cpu() for k, v in agent.params.items()})
+    actions = {}
+    scheds = {}
+    for device, a in (("cuda", agent), ("cpu", cpu_agent)):
+        log = ActionLog(a)
+        sched = RLScheduler(log, env_cfg)
+        scheds[device] = {q: sched.schedule(queue) for q, queue in queues.items()}
+        actions[device] = log.actions
+    if actions["cuda"] != actions["cpu"]:
+        fail("the trained agent's greedy actions on the card differ from the CPU's")
+    say(f"[4] {len(actions['cuda'])} greedy actions over {len(queues)} paper queues: "
+        f"card == CPU")
+    say(f"[4] {'queue':6s} {'time_sharing':>12s} {'mps_only':>9s} {'rl':>7s} {'oracle':>7s}")
+    rl = []
+    for qname, queue in queues.items():
+        s_rl = scheds["cuda"][qname]
+        validate_schedule(queue, s_rl, env_cfg.c_max)
+        row = [summarize(POLICIES["time_sharing"](queue, 4))["throughput"],
+               summarize(POLICIES["mps_only"](queue, 4))["throughput"],
+               summarize(s_rl)["throughput"],
+               summarize(POLICIES["oracle"](queue, 4))["throughput"]]
+        say(f"[4] {qname:6s} {row[0]:12.3f} {row[1]:9.3f} {row[2]:7.3f} {row[3]:7.3f}")
+        if not row[2] <= row[3] + 1e-6:
+            fail(f"{qname}: rl throughput {row[2]:.6f} above the oracle's {row[3]:.6f}")
+        rl.append(row[2])
+    mean_rl = float(np.mean(rl))
+    say(f"[4] mean rl throughput {mean_rl:.3f} (time sharing = 1.0), every schedule valid, "
+        f"rl <= oracle on every queue; kernel launches while training {launches}")
+    if not mean_rl > 1.1:
+        fail(f"the trained agent's mean throughput {mean_rl:.3f} is not above 1.1")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -415,12 +609,18 @@ def main() -> None:
     card = phase_card(torch)
     recs = phase_kernels(torch, card)
     phase_schedule(card)
-    launches = phase_pair(torch, card)
+    pair = phase_pair(torch, card)
     phase_reference(torch)
+    train = phase_train(torch, card)
+    # launches on the main paths: the co-run pair and training (no path of
+    # the package calls rmsnorm)
+    launches = {name: pair[name] + train[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention/kernel.py:91")}
+                                   "src/repro/kernels/flash_attention/kernel.py:91"),
+               "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                           "src/repro/kernels/rmsnorm/kernel.py:29")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = recs[name]

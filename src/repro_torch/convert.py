@@ -1,8 +1,10 @@
-"""Weights carried across from the JAX package.
+"""Weights and agent state carried across from the JAX package.
 
 Both packages keep parameters as nested dicts with the same keys, and the
 dense model's layer parameters stacked on a leading ``L`` axis (the
-reference's vmapped init), so conversion is a leaf-by-leaf copy.  Inputs
+reference's vmapped init), so conversion is a leaf-by-leaf copy.  A DQN
+agent carries its online and target parameters and its Adam state
+(``m``, ``v``, ``t``), so training continues across the packages.  Inputs
 are numpy trees (``jax.device_get`` of the reference's params); a bfloat16
 leaf arrives as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
 refuses, so every leaf goes through float32 (exact for bfloat16) and is
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.agent import DQNAgent
+from repro_torch.core.agent import DQNAgent, DQNConfig
 
 _TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -51,4 +53,28 @@ def load_golden_dqn(path, device="cuda") -> DQNAgent:
         params = dqn_params_from_numpy({k: z[f"param_{i}"] for i, k in enumerate(DQN_KEYS)},
                                        device)
     state_dim, n_actions = params["w0"].shape[0], params["wA"].shape[1]
-    return DQNAgent(state_dim, n_actions, device=device, params=params)
+    return DQNAgent(state_dim, n_actions, DQNConfig(), device=device, params=params)
+
+
+def dqn_agent_from_numpy(params: dict, target: dict | None = None, opt: dict | None = None, *,
+                         cfg: DQNConfig | None = None, seed: int = 0, device="cuda",
+                         **agent_kwargs) -> DQNAgent:
+    """A reference agent's state as a port :class:`DQNAgent` on ``device``.
+
+    ``params`` and ``target`` are numpy trees of the online and target
+    networks (``jax.device_get(agent.params)``, ``agent.target_params``),
+    ``opt`` the Adam state ``{"m": tree, "v": tree, "t": step}``.  Without
+    ``target`` the target network is a copy of ``params``; without ``opt`` the
+    Adam state starts at zero.  ``seed`` seeds the agent's numpy streams
+    (exploration, replay) as in the reference."""
+    p = dqn_params_from_numpy(params, device)
+    agent = DQNAgent(p["w0"].shape[0], p["wA"].shape[1], cfg, seed, device=device, params=p,
+                     **agent_kwargs)
+    if target is not None:
+        agent.target_params = dqn_params_from_numpy(target, device)
+    if opt is not None:
+        agent.opt = {"m": dqn_params_from_numpy(opt["m"], device),
+                     "v": dqn_params_from_numpy(opt["v"], device),
+                     "t": torch.tensor(int(np.asarray(opt["t"])), dtype=torch.int32,
+                                       device=device)}
+    return agent

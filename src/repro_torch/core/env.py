@@ -1,11 +1,15 @@
 """RL environment for co-scheduling + hierarchical partitioning (paper §IV-C).
 
-Port of the scalar half of ``repro/core/env.py``: the configuration, the
-arrival-aware context helpers and the stateful reference environment
-:class:`CoScheduleEnv` that ``RLScheduler`` steps.  The environment is numpy
-and float64 Python on the host; only the agent's forward pass runs on the
-device.  The vectorized functional environment of the reference waits for
-the training slice.
+Port of ``repro/core/env.py``: the configuration, the arrival-aware
+context helpers, and the environment's two implementations:
+
+  * :class:`VecCoScheduleEnv` — the functional core, batched over B
+    environments on a device: an immutable :class:`EnvState` of tensors and
+    pure ``reset_batch`` / ``step_batch`` transitions whose close rewards
+    come from the batched perfmodel (:mod:`repro_torch.core.perfmodel_vec`).
+    The training loop (``train.py``) steps B episodes at once through it.
+  * :class:`CoScheduleEnv` — the stateful reference wrapper ``RLScheduler``
+    steps, numpy and the float64 Python perfmodel on the host.
 
 State: W slots x (f profile features + 5 status flags), flattened — the
 paper's input layer ``W x (f+5)`` — plus, with ``EnvConfig.obs_context``,
@@ -16,14 +20,22 @@ the busy-unit mask, per-slot queueing ages and pending depth
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
-from repro_torch.core.partition import N_UNITS, Partition, enumerate_partitions, find_offsets
+from repro_torch.core.partition import (
+    N_UNITS, Partition, aligned_offsets, enumerate_partitions, find_offsets,
+)
 from repro_torch.core.perfmodel import corun_time, solo_run_time
+from repro_torch.core.perfmodel_vec import (
+    GraphedGroupMetrics, PartitionTable, QueueArrays, build_fit_table, build_partition_table,
+    close_reward, group_metrics, queue_arrays, stack_queues,
+)
 from repro_torch.core.problem import Schedule
 from repro_torch.core.profiles import FEATURES, JobProfile
 
@@ -82,7 +94,8 @@ class DispatchContext:
 
 
 class ObsContext(NamedTuple):
-    """Normalized context block appended to the observation (f32 arrays).
+    """Normalized context block appended to the observation (f32 numpy
+    arrays in the scalar env, batched device tensors in the vectorized one).
 
     The zero context — empty pod, no queued work, fresh arrivals — is the
     parity anchor: with ``ObsContext`` all-zero the observation prefix
@@ -115,6 +128,230 @@ def dispatch_obs_context(ctx: DispatchContext, window: int) -> ObsContext:
         busy_units=busy, ages=ages,
         queue_depth=np.float32(depth_feature(ctx.queue_depth, window)),
     )
+
+
+_N_CTX_MASKS = 64
+
+
+def _context_mask_table(n_masks: int = _N_CTX_MASKS, seed: int = 0) -> np.ndarray:
+    """(K, N_UNITS) f32 — plausible busy masks for training-time sampling.
+
+    Each row is a union of buddy-aligned block claims (the only shapes the
+    slice-level dispatcher ever produces) at a uniformly drawn fill target.
+    Row 0 is the all-free pod.  Fixed seed: the table is part of the
+    engine's deterministic identity (copied from the reference, numpy)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n_masks, N_UNITS), np.float32)
+    for i in range(1, n_masks):
+        target = rng.uniform()
+        busy = np.zeros(N_UNITS, bool)
+        for _ in range(16):
+            if busy.mean() >= target:
+                break
+            w = int(rng.choice((1, 2, 4, 8), p=(0.4, 0.3, 0.2, 0.1)))
+            off = int(rng.choice(aligned_offsets(w)))
+            if not busy[off:off + w].any():
+                busy[off:off + w] = True
+        out[i] = busy
+    return out
+
+
+class EnvState(NamedTuple):
+    """A batch of B episode states (device tensors); ``queue`` is constant
+    through an episode.  ``ctx`` is carried even when ``obs_context=False``,
+    where it is all-zero and never read — one layout for both modes."""
+
+    queue: QueueArrays                   # stacked per-queue job arrays, (B, ...)
+    scheduled: torch.Tensor              # (B, W) bool
+    group_idx: torch.Tensor              # (B, c_max) int64, selection order, -1 pad
+    group_size: torch.Tensor             # (B,) int64
+    ctx: ObsContext                      # (B, N_UNITS), (B, W), (B,) f32
+
+
+class VecCoScheduleEnv:
+    """Batched functional environment on a device.
+
+    ``reset_batch(queue_arrays)`` and ``step_batch(state, action)`` are pure
+    functions of their inputs over a leading env axis B — all change is in
+    the returned :class:`EnvState`.  The reference's single-env ``reset`` /
+    ``step`` are these with B = 1.  Rewards come from the batched perfmodel
+    (:mod:`repro_torch.core.perfmodel_vec`), one launch sequence for the
+    whole batch and no host sync.
+    """
+
+    def __init__(self, cfg: EnvConfig | None = None, device: str | torch.device = "cuda"):
+        self.cfg = cfg or EnvConfig()
+        self.device = torch.device(device)
+        self.partitions: list[Partition] = enumerate_partitions(self.cfg.c_max)
+        self.table: PartitionTable = build_partition_table(
+            self.partitions, self.cfg.c_max, self.device)
+        # the perfmodel's launches replay from a CUDA graph on the card
+        if self.device.type == "cuda":
+            self._metrics = GraphedGroupMetrics(self.table)
+        else:
+            self._metrics = functools.partial(group_metrics, self.table)
+        self.n_features = len(FEATURES)
+        self.context_dim = context_dim(self.cfg)
+        self.state_dim = (self.cfg.window * (self.n_features + N_FLAGS)
+                          + self.context_dim)
+        self.n_actions = self.cfg.window + len(self.partitions)
+        self._slots = torch.arange(self.cfg.window, device=self.device)
+        self._lanes = torch.arange(self.cfg.c_max, device=self.device)
+        if self.cfg.obs_context:
+            # partition-vs-busy-mask fit table (close shaping) + the sampled
+            # occupancy distribution offline training draws contexts from
+            self._fit_table = build_fit_table(self.partitions, self.device)
+            self._ctx_masks = torch.as_tensor(_context_mask_table(), device=self.device)
+            self._pow2 = 2 ** torch.arange(N_UNITS, device=self.device)
+
+    # ----------------------------------------------------------- queue prep
+    def queue_arrays(self, queue: list[JobProfile]) -> QueueArrays:
+        return queue_arrays(queue, self.cfg.window, self.device)
+
+    def queue_batch(self, queues: list[list[JobProfile]]) -> QueueArrays:
+        return stack_queues([self.queue_arrays(q) for q in queues])
+
+    def zero_context_batch(self, n: int) -> ObsContext:
+        """The neutral context for n envs."""
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+        return ObsContext(busy_units=z(n, N_UNITS), ages=z(n, self.cfg.window),
+                          queue_depth=z(n))
+
+    # ------------------------------------------------------------ functions
+    def reset_batch_ctx(self, qa: QueueArrays, ctx: ObsContext):
+        n = qa.valid.shape[0]
+        state = EnvState(
+            queue=qa,
+            scheduled=torch.zeros((n, self.cfg.window), dtype=torch.bool, device=self.device),
+            group_idx=torch.full((n, self.cfg.c_max), -1, dtype=torch.int64, device=self.device),
+            group_size=torch.zeros((n,), dtype=torch.int64, device=self.device),
+            ctx=ctx,
+        )
+        return state, self.obs_batch(state), self._mask(state)
+
+    def reset_batch(self, qa: QueueArrays):
+        """Reset with the neutral zero context — the profile-only default."""
+        return self.reset_batch_ctx(qa, self.zero_context_batch(qa.valid.shape[0]))
+
+    def sample_context(self, generator: torch.Generator | None, mean_d: torch.Tensor,
+                       valid: torch.Tensor, draws=None) -> ObsContext:
+        """Batched training-time context draw (requires ``obs_context``).
+
+        ``mean_d`` (B,) is each queue's mean solo duration — the scale of the
+        queueing-age draws — and ``valid`` (B, W) masks padding slots to zero
+        age.  Busy masks come from the aligned-claim table, ages from an
+        exponential wait model, queue depth from an exponential with mean one
+        window: the normalizations of :func:`dispatch_obs_context`.  The
+        random numbers are ``draws = (mask_index (B,), age_exp (B, W),
+        depth_exp (B,))`` (standard exponentials) when given, else drawn from
+        ``generator``."""
+        B = valid.shape[0]
+        if draws is None:
+            idx = torch.randint(0, self._ctx_masks.shape[0], (B,), generator=generator,
+                                device=self.device)
+            raw_e = torch.empty(valid.shape, device=self.device).exponential_(
+                generator=generator)
+            dep_e = torch.empty((B,), device=self.device).exponential_(generator=generator)
+        else:
+            idx, raw_e, dep_e = (torch.as_tensor(x, device=self.device) for x in draws)
+        raw = raw_e.float() * mean_d[:, None]
+        return ObsContext(
+            busy_units=self._ctx_masks[idx.long()],
+            ages=torch.where(valid, torch.log10(1.0 + raw) / 6.0, 0.0),
+            queue_depth=torch.clamp_max(dep_e.float() / 4.0, 1.0),
+        )
+
+    def _member(self, state: EnvState) -> torch.Tensor:
+        """(B, W) bool — job i currently selected into the open group."""
+        live = self._lanes[None, :] < state.group_size[:, None]             # (B, c)
+        hits = state.group_idx[:, None, :] == self._slots[None, :, None]     # (B, W, c)
+        return (hits & live[:, None, :]).any(dim=-1)
+
+    def obs_batch(self, state: EnvState) -> torch.Tensor:
+        member = self._member(state)
+        valid = state.queue.valid
+        progress = state.group_size.float() / max(1, self.cfg.c_max)
+        flags = torch.stack([
+            (valid & ~state.scheduled & ~member).float(),
+            member.float(),
+            (state.scheduled & valid).float(),
+            (~valid).float(),
+            torch.where(valid, progress[:, None], 0.0),
+        ], dim=-1)
+        flat = torch.cat([state.queue.features, flags], dim=-1).flatten(1)
+        if not self.cfg.obs_context:
+            return flat
+        return torch.cat([flat, state.ctx.busy_units, state.ctx.ages,
+                          state.ctx.queue_depth[:, None]], dim=1)
+
+    def _mask(self, state: EnvState) -> torch.Tensor:
+        member = self._member(state)
+        can_select = (state.queue.valid & ~state.scheduled & ~member
+                      & (state.group_size < self.cfg.c_max)[:, None])
+        can_close = ((state.group_size >= 1)[:, None]
+                     & (self.table.arity[None, :] == state.group_size[:, None]))
+        return torch.cat([can_select, can_close], dim=1)
+
+    def _done(self, state: EnvState) -> torch.Tensor:
+        return ((state.scheduled | ~state.queue.valid).all(dim=1)
+                & (state.group_size == 0))
+
+    def step_batch(self, state: EnvState, action: torch.Tensor, with_metrics: bool = False):
+        """Pure transition -> (state', obs', reward, done, mask').
+
+        ``with_metrics=True`` appends what :meth:`close_metrics_batch` returns
+        for the same state and action, from the same perfmodel call."""
+        W = self.cfg.window
+        action = action.long()
+        mask = self._mask(state)
+        valid = mask.gather(1, action[:, None])[:, 0]
+        is_select = action < W
+        take_sel, take_close = valid & is_select, valid & ~is_select
+        # close branch: score the group under partition p
+        p_idx = (action - W).clamp(0, len(self.partitions) - 1)
+        mk, so, ri = self._metrics(state.queue, state.group_idx, state.group_size, p_idx)
+        r_close = close_reward(mk, so, ri, self.cfg.r_i_weight, self.cfg.r_f_scale)
+        if self.cfg.obs_context and self.cfg.ctx_fit_weight > 0:
+            # closing onto a partition that cannot first-fit the observed free
+            # units costs ctx_fit_weight; an exact 0 at zero context
+            m_idx = torch.where(state.ctx.busy_units > 0.5, self._pow2, 0).sum(dim=-1)
+            r_close = r_close - self.cfg.ctx_fit_weight * (
+                1.0 - self._fit_table[p_idx, m_idx])
+        # select branch: append to the open group (selection order kept); a
+        # full group's select is invalid, so its clamped write is never kept
+        slot = state.group_size.clamp_max(self.cfg.c_max - 1)[:, None]
+        sel_idx = state.group_idx.scatter(1, slot, action[:, None])
+        new_state = state._replace(
+            scheduled=torch.where(take_close[:, None], state.scheduled | self._member(state),
+                                  state.scheduled),
+            group_idx=torch.where(take_sel[:, None], sel_idx,
+                                  torch.where(take_close[:, None], -1, state.group_idx)),
+            group_size=torch.where(take_sel, state.group_size + 1,
+                                   torch.where(take_close, 0, state.group_size)),
+        )
+        reward = torch.where(valid, torch.where(is_select, 0.0, r_close),
+                             self.cfg.invalid_penalty)
+        out = (new_state, self.obs_batch(new_state), reward, self._done(new_state),
+               self._mask(new_state))
+        if with_metrics:
+            zero = torch.zeros_like(mk)
+            out += (torch.where(take_close, mk, zero), torch.where(take_close, so, zero),
+                    take_close & (state.group_size > 1))
+        return out
+
+    def close_metrics_batch(self, state: EnvState, action: torch.Tensor):
+        """(co-run time, solo time, multi-job?) the close ``action`` realizes,
+        each (B,); zeros where ``action`` is not a valid close."""
+        W = self.cfg.window
+        action = action.long()
+        ok = self._mask(state).gather(1, action[:, None])[:, 0] & (action >= W)
+        p_idx = (action - W).clamp(0, len(self.partitions) - 1)
+        mk, so, _ = self._metrics(state.queue, state.group_idx, state.group_size, p_idx)
+        zero = torch.zeros_like(mk)
+        return (torch.where(ok, mk, zero), torch.where(ok, so, zero),
+                ok & (state.group_size > 1))
 
 
 class CoScheduleEnv:

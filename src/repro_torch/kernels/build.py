@@ -22,7 +22,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 # C entry point of each library and its arguments (pointers, ints, the
-# softmax scale, the CUDA stream); see the extern "C" function of each source
+# softmax scale or eps, the CUDA stream); see the extern "C" function of each
+# source
 _ENTRY = {
     "decode_attention": ("decode_attention_launch",
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
@@ -30,6 +31,9 @@ _ENTRY = {
     "flash_attention": ("flash_attention_launch",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                         + [ctypes.c_float, ctypes.c_void_p]),
+    "rmsnorm": ("rmsnorm_launch",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 
 _loaded: dict = {}   # kernel name -> its C launcher, once loaded

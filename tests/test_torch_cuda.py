@@ -1,12 +1,16 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
 version, the dense model on the card against the same model on the CPU,
-and the stream executor on the card.
+the stream executor on the card, the vectorized environment (its perfmodel
+replayed from a CUDA graph) against the CPU, and a short training run.
 
 They skip without an sm_90 card.  On a machine with one (and without JAX,
 which ``tests/conftest.py`` imports), run them as
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.models import model as tm
 from repro_torch.runtime.multitenant import FusedCoRunner, Tenant
 
@@ -140,3 +145,86 @@ def test_fused_corunner_streams_match_sequential(card):
     assert set(finish) == {"a", "b"}
     for t, ref in zip(tenants, solo):
         torch.testing.assert_close(t.state, ref)
+
+
+# (8192, 4096): the llama3-8b prefill tenant's residual stream; the others
+# ragged: rows not a multiple of the block, d not a multiple of 8
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,d", [(8192, 4096), (1000, 4100), (1000, 4101), (7, 3), (33, 130),
+                                    (17, 8)])
+def test_rmsnorm_kernel_matches_plain(card, dtype, rows, d):
+    rng = np.random.default_rng(rows + d)
+    x = _randn(rng, (rows, d), dtype, card) * 3
+    scale = _randn(rng, (d,), dtype, card)
+    before = rmsnorm.launches
+    out = rmsnorm(x, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    _assert_rows_close(out, rmsnorm_plain(x, scale, eps=1e-5), dtype)
+
+
+def test_rmsnorm_kernel_unaligned_rows_and_mixed_scale(card):
+    """x starting off a 16-byte boundary takes the scalar path; an f32
+    scale beside bf16 or f16 activations; a 3-d input."""
+    rng = np.random.default_rng(0)
+    for dtype in (torch.bfloat16, torch.float16):
+        buf = _randn(rng, (1 + 37 * 200,), dtype, card)
+        x = buf[1:].view(37, 200)
+        assert x.data_ptr() % 16 != 0
+        scale = _randn(rng, (200,), torch.float32, card)
+        _assert_rows_close(rmsnorm(x, scale), rmsnorm_plain(x, scale), torch.bfloat16)
+    x = _randn(rng, (2, 5, 100), torch.float32, card)
+    scale = _randn(rng, (100,), torch.float32, card)
+    _assert_rows_close(rmsnorm(x, scale), rmsnorm_plain(x, scale), torch.float32)
+
+
+def test_rmsnorm_refuses_what_it_does_not_take(card):
+    x = torch.zeros((4, 64), device=card)
+    for bad in (torch.zeros(63, device=card), torch.zeros(64),
+                torch.zeros(64, device=card, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            rmsnorm(x, bad)
+    with pytest.raises(ValueError):
+        rmsnorm(torch.zeros((64, 4), device=card).T, torch.zeros(64, device=card))
+    with pytest.raises(ValueError):
+        rmsnorm(x.double(), torch.zeros(64, device=card, dtype=torch.float64))
+
+
+def test_vec_env_on_card_matches_cpu(card):
+    """The batched environment, its perfmodel replayed from a CUDA graph,
+    gives the CPU's observations, masks and dones, and its rewards within
+    f32 rounding, on the same action stream: ``chip_smoke.py``'s check."""
+    from repro_torch.core import EnvConfig, make_zoo
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    chip_smoke.check_env_on_card(torch, make_zoo(dryrun_dir=None), EnvConfig(window=8, c_max=4))
+
+
+# the uniform ring; and the prioritized ring with sampled contexts and the
+# telemetry records
+@pytest.mark.parametrize("extra", [{}, {"per_alpha": 0.6, "obs_context": True,
+                                        "telemetry": True}])
+def test_short_training_run_on_card(card, extra):
+    from repro_torch.core import EnvConfig, RLScheduler, make_zoo, paper_queues
+    from repro_torch.core.agent import DQNAgent, DQNConfig
+    from repro_torch.core.train import TrainConfig, train_agent
+
+    zoo = make_zoo(dryrun_dir=None)
+    env_cfg = EnvConfig(window=4, c_max=3)
+    agent, hist = train_agent(zoo, env_cfg, TrainConfig(
+        episodes=60, eval_every=30, n_train_queues=4, batch_envs=8, update_every=8,
+        dqn=DQNConfig(buffer_size=512, batch_size=32, eps_decay_steps=400), **extra),
+        device=card)
+    assert agent.updates > 0 and all(np.isfinite(h["eval_throughput"]) for h in hist)
+    if extra:
+        assert hist[-1]["loss"] is not None and np.isfinite(hist[-1]["loss"])
+        env_cfg = EnvConfig(window=4, c_max=3, obs_context=True)
+    cpu = DQNAgent(agent.params["w0"].shape[0], agent.params["wA"].shape[1], device="cpu",
+                   params={k: v.cpu() for k, v in agent.params.items()})
+    for queue in paper_queues(zoo, window=4, per_kind=1).values():
+        a = RLScheduler(agent, env_cfg).schedule(queue)
+        b = RLScheduler(cpu, env_cfg).schedule(queue)
+        assert [p.label for p in a.partitions] == [p.label for p in b.partitions]
+        assert [[j.name for j in g] for g in a.groups] == [[j.name for j in g] for g in b.groups]

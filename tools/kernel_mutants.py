@@ -11,9 +11,14 @@ fail; the script prints the failure and exits non-zero if a faulty kernel
 passes.  The checkout itself is never changed.  Needs an sm_90 card and
 ``nvcc``.
 
-The faults touch only the bfloat16 code and lose a small share of a long
-row's keys, where the row's entries are near 1e-2: what an absolute bound of
-that order cannot see.
+The attention faults touch only the bfloat16 code and lose a small share of
+a long row's keys, where the row's entries are near 1e-2: what an absolute
+bound of that order cannot see.  The first RMSNorm fault drops the scalar
+tail of each row from its sum of squares, which moves a row by some 4e-4:
+the 8192 x 4096 rows have no tail and the bf16 bound of 1e-2 cannot see
+it, so only the ragged f32 1000 x 4101 case can catch it.  The second
+leaves the last 8 rows of the ragged cases unwritten; the 8192-row cases
+fill whole blocks and pass.
 """
 from __future__ import annotations
 
@@ -35,6 +40,15 @@ MUTANTS = {
         "src/repro_torch/csrc/flash_attention.cu",
         "  for (int kt = 0; kt < n_kt; ++kt) {\n",
         "  for (int kt = 0; kt < n_kt - (n_kt > 16); ++kt) {\n"),
+    "rmsnorm: the scalar tail of each row is left out of its sum of squares": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        "  for (int i = tail + lane; i < d; i += 32) {\n    const float v = to_f32(xr[i]);\n",
+        "  for (int i = d + lane; i < d; i += 32) {\n    const float v = to_f32(xr[i]);\n"),
+    "rmsnorm: the launch rounds the row count down to whole blocks, so the rows of a "
+    "ragged last block are never normalized": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        "  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;\n",
+        "  const int blocks = rows / kWarpsPerBlock;\n"),
 }
 
 KERNEL_PHASES = ("import torch, chip_smoke as c; "
