@@ -9,7 +9,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and power limit and builds the CUDA kernels from ``src/repro_torch/csrc``.
 1. Each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it, in bfloat16 and float32, timed beside its bound
-   and beside one PyTorch library call computing the same function.  RMSNorm
+   and beside one PyTorch library call computing the same function.  Flash
+   attention also runs right-aligned (Sq 1000 against Skv 8192) and at the
+   edges of its bf16 kernel's 128-row tiles (Sq, Skv of 127, 129, 1000,
+   causal and not, Sq > Skv with rows that see no key).  RMSNorm
    runs at the llama3-8b prefill tenant's residual stream (8192 x 4096, bf16
    and f32) and at a ragged 1000 x 4100 (bf16) and 1000 x 4101 (f32), whose
    rows fill no whole block and whose d leaves a scalar head and tail beside
@@ -175,7 +178,8 @@ def decode_case(torch, dtype, lengths, smax=32768, hq=32, hkv=8, d=128, timed=Tr
     return rec
 
 
-def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True):
+def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, batch=1, causal=True,
+               timed=True):
     import numpy as np
     import torch.nn.functional as F
 
@@ -183,12 +187,13 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True)
 
     name = str(dtype).split(".")[1]
     gen = torch.Generator("cuda").manual_seed(12)
-    q = torch.randn((1, sq, hq, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, skv, hkv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((1, skv, hkv, d), generator=gen, device="cuda").to(dtype)
-    out = flash_attention(q, k, v, causal=True)
-    ref = flash_attention_plain(q, k, v, causal=True)
-    rec = compare(torch, out, ref, name, f"flash_attention {name} Sq={sq} Skv={skv}")
+    q = torch.randn((batch, sq, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((batch, skv, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((batch, skv, hkv, d), generator=gen, device="cuda").to(dtype)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    what = f"flash_attention {name} B={batch} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} causal={causal}"
+    rec = compare(torch, out, ref, name, what)
     if timed:
         esize = q.element_size()
         pairs = float(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())   # visible (q, k)
@@ -200,8 +205,7 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, timed=True)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, enable_gqa=True), 10)
-    say(f"[1] flash_attention {name} B=1 Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} D={d} causal: "
-        f"{show(rec)} row_tol={ROW_TOL[name]:g}")
+    say(f"[1] {what} D={d}: {show(rec)} row_tol={ROW_TOL[name]:g}")
     return rec
 
 
@@ -238,6 +242,12 @@ def phase_kernels(torch, card):
     flash_case(torch, torch.float32)
     for dtype in (torch.bfloat16, torch.float32):                    # right-aligned, Sq < Skv
         flash_case(torch, dtype, sq=1000, skv=8192, timed=False)
+    # the bf16 kernel's 128 x 128 tiles cut one row short, one row over, and
+    # with Sq > Skv (causal rows with no visible key must give exactly 0)
+    for sq, skv in ((127, 1000), (1000, 127), (129, 129)):
+        for causal in (True, False):
+            flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=8, hkv=2, batch=2,
+                       causal=causal, timed=False)
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     rmsnorm.launches = 0

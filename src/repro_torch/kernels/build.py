@@ -100,10 +100,13 @@ def load(name: str):
 
 
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero status from a C launcher (a cudaError_t, or -1
-    for a shape the kernel does not take)."""
+    """Raise on a non-zero status from a C launcher (a cudaError_t, -1 for
+    a shape the kernel does not take, -2 for a TMA tensor map that
+    cuTensorMapEncodeTiled refused)."""
     if err == -1:
         raise ValueError(f"{what}: shape or dtype not supported by the kernel")
+    if err == -2:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA tensor map")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -3,7 +3,9 @@
 Port of ``repro/kernels/flash_attention``.  :func:`flash_attention` takes
 the reference wrapper's layout — q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) —
 and launches the CUDA kernel of ``csrc/flash_attention.cu`` for tensors on
-the card: tensor cores for bfloat16, CUDA cores for float32.
+the card: for bfloat16 the tensor cores (TMA loads and wgmma products, so
+q, k, v and the output must start on a 16-byte boundary), for float32 the
+CUDA cores.
 :func:`flash_attention_plain` is the same function in plain PyTorch; the
 wrapper uses it only for tensors on the CPU.
 
@@ -77,8 +79,11 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: tensors must be contiguous")
     build.require_sm90(q)
-    launch = build.load("flash_attention")
     out = torch.empty_like(q)
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} does not start on a 16-byte boundary")
+    launch = build.load("flash_attention")
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Skv, Hq, Hkv, D, _DTYPE_CODE[q.dtype], int(causal),

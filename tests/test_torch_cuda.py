@@ -88,6 +88,43 @@ def test_flash_kernel_matches_plain(card, dtype, Sq, Skv, causal):
     _assert_rows_close(out, ref, dtype)
 
 
+# the bf16 kernel's tiles are 128 q rows by 128 kv rows: one row short of a
+# tile, a whole tile, one row into the next, and a ragged 1000; Sq > Skv
+# leaves the first Sq - Skv rows of a causal run with no visible key
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Skv", [127, 128, 129, 1000])
+@pytest.mark.parametrize("Sq", [127, 128, 129, 1000])
+def test_flash_kernel_tile_edges(card, Sq, Skv, causal):
+    rng = np.random.default_rng(Sq * 11 + Skv * 3 + causal)
+    B, Hq, Hkv, D = 2, 8, 2, 128
+    q = _randn(rng, (B, Sq, Hq, D), torch.bfloat16, card)
+    k = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    v = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0), "rows with no visible key give 0"
+    _assert_rows_close(out, flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
+
+
+def test_flash_kernel_refuses_unaligned_tensors(card):
+    """TMA reads from a 16-byte boundary: a view one element in is refused."""
+    q = torch.zeros((2, 128, 8, 128), dtype=torch.bfloat16, device=card)
+    kv = torch.zeros((2, 128, 2, 128), dtype=torch.bfloat16, device=card)
+    buf = torch.zeros(1 + q.numel(), dtype=torch.bfloat16, device=card)
+    q_off = buf[1:].view(q.shape)
+    k_off = buf[1:1 + kv.numel()].view(kv.shape)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 != 0
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q_off, kv, kv)
+    with pytest.raises(ValueError):
+        flash_attention(q, k_off, kv)
+    assert flash_attention.launches == before
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     q = torch.zeros((1, 4, 64), device=card)        # D = 64: the kernels take 128
     kv = torch.zeros((1, 8, 2, 64), device=card)
