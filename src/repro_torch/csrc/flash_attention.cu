@@ -50,6 +50,7 @@
 #include <dlfcn.h>
 
 #include "attention_simt.cuh"
+#include "mbarrier.cuh"
 
 namespace repro_torch {
 
@@ -71,49 +72,6 @@ constexpr int kQBytes = 2 * kQBox;
 constexpr int kKVBytes = 2 * kKVBox;
 constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
 constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 3 * kStages);   // + 1024: alignment
-constexpr unsigned long long kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t globaltimer_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = globaltimer_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (globaltimer_ns() - t0 > kWaitLimitNs) __trap();
-}
 
 // One box of a 4-d tensor map into shared memory; completes on ``bar``.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -185,11 +143,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
 // Named barriers 1 and 2 pass the turn on the tensor cores between the two
 // consumer warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void named_bar_sync(int id) {
@@ -197,14 +150,6 @@ __device__ __forceinline__ void named_bar_sync(int id) {
 }
 __device__ __forceinline__ void named_bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-// 2^x on the special-function unit, subnormal results flushed to 0 (exp2f
-// adds a range reduction for them); 2^-inf = 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Online softmax of one tile of scores, in place: sc becomes P (log2

@@ -7,8 +7,15 @@ for tensors on the card.  :func:`decode_attention_plain` is the same
 function in plain PyTorch; the wrapper uses it only for tensors on the CPU.
 
 Contract (the kernel's, ``kernel.py:70-73`` of the reference): cache
-entries at or past a row's length never affect the output, and a row of
-length 0 gives 0 (the reference's dense oracle gives NaN there).
+entries at or past a row's length are never read and never affect the
+output, and a row of length 0 gives 0 (the reference's dense oracle gives
+NaN there).
+
+The bf16 kernel spreads the valid keys evenly over its blocks, a rule the
+device applies to the lengths it reads itself: :func:`work_ranges` and
+:func:`pair_blocks` below are that rule's spec, which the CUDA code follows.
+The wrapper reads nothing back from the card and sizes its workspace from
+the shapes alone, so a decode step can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GROUP = 8
-_TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys per shared-memory tile
+_TILE = {torch.bfloat16: 32, torch.float32: 32}   # keys per shared-memory tile
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale: float | None = None):
@@ -47,15 +54,77 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale: float | None 
 
 
 _TILES_PER_CHUNK = 8
+_BLOCKS_PER_SM = 4   # bf16 blocks resident on an SM: 4 x 51 KB of shared memory
 
 
 def _split(smax: int, tile: int) -> tuple[int, int]:
-    """Sequence chunk per block and number of chunks.  Chunks are short (8
-    tiles), so a sequence's work spreads over many blocks and the blocks of
-    chunks past its length exit at once: with ragged lengths the valid work
-    is balanced over the SMs without the host reading the lengths."""
+    """float32: sequence chunk per block and number of chunks.  Chunks are
+    short (8 tiles), so a sequence's work spreads over many blocks and the
+    blocks of chunks past its length exit at once."""
     chunk = _TILES_PER_CHUNK * tile
     return chunk, -(-smax // chunk)
+
+
+def pair_tiles(lengths, n_kv_heads: int, smax: int, tile: int) -> list[int]:
+    """Tiles of valid keys of each (batch, kv head) pair, pair p = b * Hkv + h."""
+    out = []
+    for n in lengths:
+        out += [-(-min(max(int(n), 0), smax) // tile)] * n_kv_heads
+    return out
+
+
+def block_of(t: int, total: int, n_blocks: int) -> int:
+    """The block whose share holds tile ``t`` of the ``total`` valid tiles."""
+    return ((t + 1) * n_blocks - 1) // total
+
+
+def work_ranges(lengths, n_blocks: int, tile: int, n_kv_heads: int, smax: int):
+    """The bf16 kernel's split, decided on the device from ``lengths``.
+
+    The valid tiles of all (batch, kv head) pairs, pair after pair, are
+    numbered 0 .. T - 1; block i takes tiles [i T // n_blocks,
+    (i + 1) T // n_blocks), whole tiles only, so shares differ by at most
+    one tile.  A share may run from one pair into the next: it then has one
+    segment per pair, and writes one partial (m, l, acc) per segment, to
+    slot i + p of the workspace (i + p grows along the shares, so no two
+    segments share a slot).  Returns, per block, its segments as
+    ``(pair, first tile, end tile)`` with tiles counted inside the pair.
+    """
+    tiles = pair_tiles(lengths, n_kv_heads, smax, tile)
+    total = sum(tiles)
+    starts = [sum(tiles[:p]) for p in range(len(tiles))]
+    out = []
+    for i in range(n_blocks):
+        lo, hi = i * total // n_blocks, (i + 1) * total // n_blocks
+        segs = []
+        for p, (s, n) in enumerate(zip(starts, tiles)):
+            a, b = max(lo, s), min(hi, s + n)
+            if a < b:
+                segs.append((p, a - s, b - s))
+        out.append(segs)
+    return out
+
+
+def pair_blocks(lengths, n_blocks: int, tile: int, n_kv_heads: int, smax: int):
+    """For each pair, the blocks whose partials the combine pass merges:
+    those of ``block_of(first tile) .. block_of(last tile)`` whose share is
+    not empty (with more blocks than tiles, some shares are), none for a
+    pair with no valid key (whose output is 0)."""
+    tiles = pair_tiles(lengths, n_kv_heads, smax, tile)
+    total, start, out = sum(tiles), 0, []
+    for n in tiles:
+        blocks = range(block_of(start, total, n_blocks),
+                       block_of(start + n - 1, total, n_blocks) + 1) if n else range(0)
+        out.append([i for i in blocks if i * total // n_blocks < (i + 1) * total // n_blocks])
+        start += n
+    return out
+
+
+def grid_blocks(device, n_pairs: int, smax: int) -> int:
+    """Blocks of the bf16 split kernel: one wave of ``_BLOCKS_PER_SM`` a
+    multiprocessor, and no more than the tiles the cache could hold."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(_BLOCKS_PER_SM * sms, n_pairs * -(-smax // _TILE[torch.bfloat16])))
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None):
@@ -82,13 +151,21 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()
             and lengths.is_contiguous()):
         raise ValueError("decode_attention: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention: q and the caches must start on 16-byte boundaries")
     build.require_sm90(q)
     launch = build.load("decode_attention")
     g = Hq // Hkv
-    chunk, n_split = _split(Smax, _TILE[q.dtype])
+    if q.dtype == torch.bfloat16:
+        # n_split blocks, slot i + p of block i's segment of pair p
+        n_split, chunk = grid_blocks(q.device, B * Hkv, Smax), _TILE[q.dtype]
+        slots = n_split + B * Hkv
+    else:
+        chunk, n_split = _split(Smax, _TILE[q.dtype])
+        slots = B * Hkv * n_split
     out = torch.empty_like(q)
-    part_acc = torch.empty((B * Hkv * n_split * g * D,), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B * Hkv * n_split * g * 2,), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((slots * g * D,), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((slots * g * 2,), dtype=torch.float32, device=q.device)
     err = launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),

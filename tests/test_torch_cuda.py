@@ -50,25 +50,81 @@ def _randn(rng, shape, dtype, device):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("group", [1, 4, 8])
-def test_decode_kernel_matches_plain(card, dtype, group):
-    rng = np.random.default_rng(group)
-    B, Smax, Hkv, D = 5, 1000, 2, 128
-    q = _randn(rng, (B, Hkv * group, D), dtype, card)
-    k = _randn(rng, (B, Smax, Hkv, D), dtype, card)
-    v = _randn(rng, (B, Smax, Hkv, D), dtype, card)
-    lens = torch.tensor([1000, 333, 1, 0, 64], dtype=torch.int32, device=card)
-    for b, n in enumerate(lens.tolist()):
+def _decode_inputs(rng, lengths, smax, hkv, group, dtype, device):
+    B, D = len(lengths), 128
+    q = _randn(rng, (B, hkv * group, D), dtype, device)
+    k = _randn(rng, (B, smax, hkv, D), dtype, device)
+    v = _randn(rng, (B, smax, hkv, D), dtype, device)
+    for b, n in enumerate(lengths):
         k[b, n:] = 3e4          # never read: must not reach the output
         v[b, n:] = -3e4
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+def _check_decode(q, k, v, lens):
     before = decode_attention.launches
     out = decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
-    ref = decode_attention_plain(q, k, v, lens)
-    assert torch.all(out[3] == 0), "a row of length 0 gives 0"
-    _assert_rows_close(out, ref, dtype)
+    for b, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert torch.all(out[b] == 0), "a row of length 0 gives 0"
+    _assert_rows_close(out, decode_attention_plain(q, k, v, lens), q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_decode_kernel_matches_plain(card, dtype, group):
+    rng = np.random.default_rng(group)
+    _check_decode(*_decode_inputs(rng, [1000, 333, 1, 0, 64], 1000, 2, group, dtype, card))
+
+
+# the bf16 kernel's 32-key tiles: one key below, at and above a tile; a
+# length past Smax; Smax not a tile multiple; rows of length 0 among them
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_decode_kernel_tile_edges(card, group):
+    rng = np.random.default_rng(100 + group)
+    q, k, v, lens = _decode_inputs(rng, [31, 32, 33, 0, 1, 1005, 63, 65], 1000, 2, group,
+                                   torch.bfloat16, card)
+    _check_decode(q, k, v, lens)
+
+
+# one pair spread over every block of the grid: its tiles one below, at and
+# one above the grid's size (a block share of one tile, and then of two),
+# and a length one key below, at and above a share
+@pytest.mark.parametrize("extra", [-33, -32, -1, 0, 1, 32, 33])
+def test_decode_kernel_one_long_pair(card, extra):
+    from repro_torch.kernels.decode_attention.ops import _TILE, grid_blocks
+
+    tile = _TILE[torch.bfloat16]
+    smax = 700 * tile + 5
+    n_blocks = grid_blocks(card, 1, smax)
+    rng = np.random.default_rng(200 + extra)
+    q, k, v, lens = _decode_inputs(rng, [n_blocks * tile + extra], smax, 1, 8, torch.bfloat16,
+                                   card)
+    _check_decode(q, k, v, lens)
+
+
+def test_decode_kernel_in_a_cuda_graph(card):
+    """One call captured in a CUDA graph and replayed after the lengths are
+    changed in place gives what the eager call gives at the new lengths:
+    the wrapper reads nothing back and sizes nothing from the lengths."""
+    rng = np.random.default_rng(300)
+    q, k, v, lens = _decode_inputs(rng, [4000, 17, 2500], 4096, 8, 4, torch.bfloat16, card)
+    k[:], v[:] = _randn(rng, k.shape, k.dtype, card), _randn(rng, v.shape, v.dtype, card)
+    decode_attention(q, k, v, lens)      # build and warm up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, lens)
+    for new in ([4000, 17, 2500], [1, 4096, 0], [2048, 33, 4095]):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, eager, atol=0, rtol=0)
+        _assert_rows_close(out, decode_attention_plain(q, k, v, lens), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -132,6 +188,12 @@ def test_kernels_refuse_what_they_do_not_take(card):
         decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
     with pytest.raises(ValueError):
         flash_attention(q[:, None], kv, kv)
+    # the decode kernel's bulk copies read from 16-byte boundaries
+    buf = torch.zeros(1 + 4 * 128, dtype=torch.bfloat16, device=card)
+    q_off = buf[1:].view(1, 4, 128)
+    kv = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError):
+        decode_attention(q_off, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
 
 
 def _small_cfg():
@@ -191,6 +253,24 @@ def test_fused_corunner_streams_match_sequential(card):
                                     (17, 8)])
 def test_rmsnorm_kernel_matches_plain(card, dtype, rows, d):
     rng = np.random.default_rng(rows + d)
+    x = _randn(rng, (rows, d), dtype, card) * 3
+    scale = _randn(rng, (d,), dtype, card)
+    before = rmsnorm.launches
+    out = rmsnorm(x, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    _assert_rows_close(out, rmsnorm_plain(x, scale, eps=1e-5), dtype)
+
+
+# the register path holds rows of up to 2048 16-byte vectors (16384 bf16,
+# 8192 f32); one element past it takes the two-pass path.  1 and 7 rows
+# widen to 256 threads a row, 1000 rows of 8192 f32 as well
+@pytest.mark.parametrize("rows", [1, 7, 1000])
+@pytest.mark.parametrize("past_cap", [-1, 0, 1])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_at_the_register_cap(card, dtype, past_cap, rows):
+    d = 2048 * (16 // torch.tensor([], dtype=dtype).element_size()) + past_cap
+    rng = np.random.default_rng(rows + past_cap)
     x = _randn(rng, (rows, d), dtype, card) * 3
     scale = _randn(rng, (d,), dtype, card)
     before = rmsnorm.launches

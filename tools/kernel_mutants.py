@@ -11,18 +11,25 @@ at the main path's shapes) on the card.  Each run must fail; the script
 prints the failure and exits non-zero if a faulty kernel passes.  The
 checkout itself is never changed.  Needs an sm_90 card and ``nvcc``.
 
-The attention faults touch only the bfloat16 code.  The decode fault and
-the first flash fault lose a small share of a long row's keys, where the
-row's entries are near 1e-2: what an absolute bound of that order cannot
-see.  The flash kernel's ring has a producer loop and a consumer loop, so
-its lost tile is planted in both (the producer never loads it, the
-consumers never wait for it).  The second flash fault leaves the tile that
-crosses the causal diagonal unmasked: rows then see up to 127 later keys.
-The first RMSNorm fault drops the scalar tail of each row from its sum of
-squares, which moves a row by some 4e-4: the 8192 x 4096 rows have no tail
-and the bf16 bound of 1e-2 cannot see it, so only the ragged f32 1000 x 4101
-case can catch it.  The second leaves the last 8 rows of the ragged cases
-unwritten; the 8192-row cases fill whole blocks and pass.
+The attention faults touch only the bfloat16 code.  The decode faults
+lose part of a long row's keys, where the row's entries are near 1e-2: what
+an absolute bound of that order cannot see.  The first leaves the first
+partial out of the accumulators the combine pass sums for each pair that
+has more than one (its weight stays in the denominator); the
+second loses the partial of a share's last pair where that is not its
+first (the slot keeps whatever the workspace held); the third shortens
+every share of more than 8 tiles
+by its last tile in the one loop count that both the producer and the
+consumer warp follow.  The flash kernel's ring has a producer loop and a
+consumer loop, so its lost tile is planted in both (the producer never loads
+it, the consumers never wait for it).  The second flash fault leaves the
+tile that crosses the causal diagonal unmasked: rows then see up to 127
+later keys.  The first RMSNorm fault drops the scalar tail of each row from
+its sum of squares, which moves a row by some 4e-4: the 8192 x 4096 rows
+have no tail and the bf16 bound of 1e-2 cannot see it, so only the ragged
+f32 1000 x 4101 case can catch it.  The second leaves the rows of a ragged
+last block unwritten (the 4095 x 1024 case, two rows a block); the third
+leaves each thread's last register vector out of its row's sum.
 """
 from __future__ import annotations
 
@@ -39,8 +46,19 @@ MUTANTS = {
     "decode_attention: the combine pass drops the first split of every bf16 row "
     "longer than one split": (
         "src/repro_torch/csrc/decode_attention.cu",
-        (("    for (int s = 0; s < n_seen; ++s) {\n",
-          "    for (int s = (sizeof(T) == 2 && n_seen > 1); s < n_seen; ++s) {\n"),)),
+        (("  for (long i = i_lo; i <= i_hi; ++i) {\n",
+          "  for (long i = i_lo + (i_hi > i_lo); i <= i_hi; ++i) {\n"),)),
+    "decode_attention: a bf16 block whose share crosses into another pair loses its "
+    "second segment's partial": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        (("  flush();\n}\n",
+          "  if (walk_to(lengths, Hkv, Smax, t_begin).b == seg_b && "
+          "walk_to(lengths, Hkv, Smax, t_begin).h == seg_h) flush();\n}\n"),)),
+    "decode_attention: the bf16 producer skips the last tile of a share longer than "
+    "8 tiles, and the consumer never waits for it": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        (("  const int n_it = (int)(t_end - t_begin);\n",
+          "  const int n_it = (int)(t_end - t_begin) - (t_end - t_begin > 8);\n"),)),
     "flash_attention: bf16 q tiles that see more than 16 kv tiles skip the last one": (
         "src/repro_torch/csrc/flash_attention.cu",
         (("    for (; kt < n_kt; ++kt) {\n",
@@ -53,13 +71,17 @@ MUTANTS = {
           "      const bool masked = (k0 + kBK > Skv);\n"),)),
     "rmsnorm: the scalar tail of each row is left out of its sum of squares": (
         "src/repro_torch/csrc/rmsnorm.cu",
-        (("  for (int i = tail + lane; i < d; i += 32) {\n    const float v = to_f32(xr[i]);\n",
-          "  for (int i = d + lane; i < d; i += 32) {\n    const float v = to_f32(xr[i]);\n"),)),
+        (("    for (int i = tail + t; i < d; i += tpr) {\n      const float v = to_f32(xr[i]);\n",
+          "    for (int i = d + t; i < d; i += tpr) {\n      const float v = to_f32(xr[i]);\n"),)),
     "rmsnorm: the launch rounds the row count down to whole blocks, so the rows of a "
     "ragged last block are never normalized": (
         "src/repro_torch/csrc/rmsnorm.cu",
-        (("  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;\n",
-          "  const int blocks = rows / kWarpsPerBlock;\n"),)),
+        (("  const int blocks = (rows + rows_per_block - 1) / rows_per_block;\n",
+          "  const int blocks = rows / rows_per_block;\n"),)),
+    "rmsnorm: the register path leaves each lane's last vector out of its sum of squares": (
+        "src/repro_torch/csrc/rmsnorm.cu",
+        (("  for (int u = 0; u < VPL; ++u) {\n    if (live && t + u * tpr < nvec) {\n",
+          "  for (int u = 0; u < VPL - 1; ++u) {\n    if (live && t + u * tpr < nvec) {\n"),)),
 }
 
 KERNEL_PHASES = ("import torch, chip_smoke as c; "

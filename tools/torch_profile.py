@@ -14,7 +14,8 @@ step alone, and one co-run macro-step of ``FusedCoRunner`` (both tenants on
 their streams).  For each run it prints the wall time, the device's busy
 time (the union of all kernel intervals, over all streams), the idle share,
 the kernels the device ran, the host's launch calls (kernels, graphs,
-copies), and the device time by kernel class.  Chrome traces go to ``DIR``
+copies), and the device time by kernel class (the union of the class's
+kernel intervals).  Chrome traces go to ``DIR``
 (default ``chiprun_out/profile``).  Needs a card; fails without one.
 """
 from __future__ import annotations
@@ -37,7 +38,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaM
 TRAIN_STEPS = 5
 CLASSES = (("flash_attention", ("flash_fwd",)),
            ("decode_attention", ("decode_split", "decode_combine")),
-           ("rmsnorm", ("rmsnorm_kernel",)),
+           ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_regs_kernel")),
            ("matmul (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sm90_")),
            ("other", ("",)))
 
@@ -81,10 +82,12 @@ def profile(torch, label: str, fn, out_dir: Path, keep: bool = True) -> dict:
     kernels = [e for e in events if e.get("cat") == "kernel"]
     if not kernels:
         chip_smoke.fail(f"{label}: the profiler recorded no device kernels")
-    by_class: dict[str, float] = {}
+    # a class's time is the union of its kernels' intervals: decode's combine
+    # pass starts early and waits for the split kernel, and is not counted twice
+    intervals: dict[str, list] = {}
     for e in kernels:
-        c = kernel_class(e["name"])
-        by_class[c] = by_class.get(c, 0.0) + e["dur"]
+        intervals.setdefault(kernel_class(e["name"]), []).append((e["ts"], e["ts"] + e["dur"]))
+    by_class = {c: busy_us(iv) for c, iv in intervals.items()}
     busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
     span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
     launch_calls = {}
