@@ -36,12 +36,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    schedule must be valid, the agent must stay at or under the oracle on
    every queue and average above 1.1x time sharing, and its greedy actions on
    the card must equal the same parameters' on the CPU.
+5. Training the LM tenants.  (a) One train step of a small f32 model
+   (llama3-8b's smoke config at D=128, TF32 off) on the card against the
+   CPU: the loss, every gradient leaf and the updated parameters, within the
+   bounds stated at ``LM_LOSS_TOL``.  (b) The train tenant of
+   ``examples/co_schedule.py`` step 4 at llama3-8b's published widths, cut
+   to 4 of its 32 layers, on 1 x 4096 markov tokens with block remat: 24
+   steps, each one's loss, grad norm, lr and synchronized time, and the
+   peak memory; it fails unless every loss and grad norm is finite, the last
+   loss is below the first and the flash kernel ran 2 x layers x steps
+   times.  (c) That tenant (share 0.75, 24 steps) co-run with phase 3's
+   decode tenant (share 0.25, 8 steps) on two streams, then each alone, as
+   phase 3 reports its pair; the decode logits and the train losses of the
+   co-run must equal the solo runs' within the stated bounds.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -274,6 +288,10 @@ def phase_kernels(torch, card):
         for causal in (True, False):
             flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=8, hkv=2, batch=2,
                        causal=causal, timed=False)
+    # phase 5's train tenant: its forward and remat recompute run the bf16 kernel
+    cfg, shape = lm_train_config()
+    flash_case(torch, torch.bfloat16, sq=shape.seq_len, skv=shape.seq_len, hq=cfg.n_heads,
+               hkv=cfg.n_kv_heads, d=cfg.d_head, batch=shape.global_batch, timed=False)
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     rmsnorm.launches = 0
@@ -340,31 +358,19 @@ def phase_schedule(card):
 # phase 3: the co-scheduled pair
 # ---------------------------------------------------------------------------
 
-def make_pair(torch):
-    """Set up the co-scheduled llama3-8b pair on the card, one CUDA stream
-    per tenant, and warm both up.  Returns ``(steps, tenants)``: the steps
-    each tenant runs, and ``tenants(which)``, which makes fresh tenants
-    (``which`` names "prefill", "decode" or both) that start from the same
-    initial state every time."""
-    from repro_torch.configs import SHAPES, get_config, scaled_shape
-    from repro_torch.models.model import decode_step, init_cache, init_params, prefill
+def make_decode(torch, cfg, share, stream):
+    """Phase 3's decode tenant of ``cfg`` on ``stream``: batch 4 against a
+    32768-slot cache filled at ragged lengths, weights and cache from seeded
+    ``torch.Generator``s.  The step writes into the cache in place, and the
+    same initial state gives the same steps again (each step reads only the
+    rows before its own write), so ``dataclasses.replace`` of the tenant
+    before it runs makes another that starts alike."""
+    from repro_torch.configs import SHAPES, scaled_shape
+    from repro_torch.models.model import decode_step, init_cache, init_params
     from repro_torch.runtime.multitenant import Tenant
 
-    cfg = get_config("llama3-8b")
-    pre = scaled_shape(SHAPES["prefill_32k"], 32, 4)       # batch 1 x 8192 tokens
     dec = scaled_shape(SHAPES["decode_32k"], 32, 1)        # batch 4, 32768-slot cache
-    say(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_layers} of "
-        f"{cfg.n_layers} layers (no depth cut), {cfg.dtype}; prefill {pre.global_batch}x"
-        f"{pre.seq_len}, decode batch {dec.global_batch} cache {dec.seq_len}")
-    s_pre, s_dec = torch.cuda.Stream(), torch.cuda.Stream()
-    t0 = time.perf_counter()
-    with torch.cuda.stream(s_pre):
-        p_params = init_params(cfg, seed=1)
-        gen = torch.Generator("cuda").manual_seed(21)
-        tokens = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
-                               generator=gen, device="cuda")
-    with torch.cuda.stream(s_dec):
+    with torch.cuda.stream(stream):
         d_params = init_params(cfg, seed=2)
         cache = init_cache(d_params, cfg, dec.global_batch, dec.seq_len)
         gen = torch.Generator("cuda").manual_seed(22)
@@ -374,39 +380,67 @@ def make_pair(torch):
         start = [dec.seq_len - DECODE_STEPS, 24577, 16001, 8191][:dec.global_batch]
         if max(start) + DECODE_STEPS > dec.seq_len:
             fail("decode would write past its cache")
-        dec_state0 = (torch.randint(0, cfg.vocab_size, (dec.global_batch,), generator=gen,
-                                    device="cuda"),
-                      torch.tensor(start, dtype=torch.int32, device="cuda"), None)
-    torch.cuda.synchronize()
-    say(f"[3] set-up {time.perf_counter() - t0:.1f} s (weights from seeded torch.Generators, "
-        f"cache filled at ragged lengths {start})")
-
-    def prefill_fn(state):
-        logits, _ = prefill(p_params, tokens, cfg, pre.seq_len)
-        return logits
+        state0 = (torch.randint(0, cfg.vocab_size, (dec.global_batch,), generator=gen,
+                                device="cuda"),
+                  torch.tensor(start, dtype=torch.int32, device="cuda"), None)
 
     def decode_fn(state):
         tok, pos, _ = state
         logits, _ = decode_step(d_params, cache, tok, pos, cfg)
         return logits.argmax(dim=-1), pos + 1, logits
 
-    names = {"prefill": f"{cfg.name}:{pre.name}", "decode": f"{cfg.name}:{dec.name}"}
-    steps = {names["prefill"]: PREFILL_STEPS, names["decode"]: DECODE_STEPS}
+    return Tenant(f"{cfg.name}:{dec.name}", decode_fn, state0, share, stream=stream)
+
+
+def make_pair(torch):
+    """Set up the co-scheduled llama3-8b pair on the card, one CUDA stream
+    per tenant, and warm both up.  Returns ``(steps, tenants)``: the steps
+    each tenant runs, and ``tenants(which)``, which makes fresh tenants
+    (``which`` names "prefill", "decode" or both) that start from the same
+    initial state every time."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models.model import init_params, prefill
+    from repro_torch.runtime.multitenant import Tenant
+
+    cfg = get_config("llama3-8b")
+    pre = scaled_shape(SHAPES["prefill_32k"], 32, 4)       # batch 1 x 8192 tokens
+    s_pre, s_dec = torch.cuda.Stream(), torch.cuda.Stream()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(s_pre):
+        p_params = init_params(cfg, seed=1)
+        gen = torch.Generator("cuda").manual_seed(21)
+        tokens = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
+                               generator=gen, device="cuda")
+    dec = make_decode(torch, cfg, SHARES["decode"], s_dec)
+    tok, pos, _ = dec.state
+    say(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_layers} of "
+        f"{cfg.n_layers} layers (no depth cut), {cfg.dtype}; prefill {pre.global_batch}x"
+        f"{pre.seq_len}, decode {dec.name} (batch {tok.shape[0]})")
+    torch.cuda.synchronize()
+    say(f"[3] set-up {time.perf_counter() - t0:.1f} s (weights from seeded torch.Generators, "
+        f"cache filled at ragged lengths {pos.tolist()})")
+
+    def prefill_fn(state):
+        logits, _ = prefill(p_params, tokens, cfg, pre.seq_len)
+        return logits
+
+    pre_name = f"{cfg.name}:{pre.name}"
+    steps = {pre_name: PREFILL_STEPS, dec.name: DECODE_STEPS}
 
     def tenants(which):
         out = []
         if "prefill" in which:
-            out.append(Tenant(names["prefill"], prefill_fn, None, SHARES["prefill"], stream=s_pre))
+            out.append(Tenant(pre_name, prefill_fn, None, SHARES["prefill"], stream=s_pre))
         if "decode" in which:
-            out.append(Tenant(names["decode"], decode_fn, dec_state0, SHARES["decode"],
-                              stream=s_dec))
+            out.append(dataclasses.replace(dec))
         return out
 
     # warm-up: one step of each on its stream (cuBLAS handles, first kernel loads)
     with torch.cuda.stream(s_pre):
         prefill_fn(None)
     with torch.cuda.stream(s_dec):
-        decode_fn(dec_state0)
+        dec.step_fn(dec.state)
     torch.cuda.synchronize()
     return steps, tenants
 
@@ -640,6 +674,201 @@ def phase_train(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training the LM tenants
+# ---------------------------------------------------------------------------
+
+LM_LAYERS, LM_STEPS = 4, 24          # llama3-8b cut to 4 of its 32 layers; step 4's 24 steps
+LM_SHARES = {"train": 0.75, "decode": 0.25}      # examples/co_schedule.py step 4
+LM_SEED = 31
+# (a) card against CPU, f32, TF32 off: the loss within 1e-5 relative; each
+# gradient leaf within 1e-4 of its norm (||g_card - g_cpu|| / ||g_cpu||);
+# the updated parameters within 2e-5 absolute, a tenth of the first step's
+# learning rate (an AdamW step moves each entry by about lr, whatever its
+# gradient's size, so an entry whose tiny gradient differs moves by at most
+# that much).
+LM_LOSS_TOL, LM_GRAD_TOL, LM_PARAM_TOL = 1e-5, 1e-4, 2e-5
+# (c) co-run against solo: each step's loss within 1e-3 relative.  The two
+# runs are the same computation; the bound leaves room for sums whose order
+# is not fixed (atomics), which would move the losses of later steps.
+LM_CORUN_LOSS_TOL = 1e-3
+
+
+def lm_train_config():
+    """Phase 5's train tenant: llama3-8b at its published widths, cut to
+    ``LM_LAYERS`` layers, and its shape (1 x 4096 tokens)."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+
+    cfg = get_config("llama3-8b").replace(n_layers=LM_LAYERS)
+    return cfg, scaled_shape(SHAPES["train_4k"], 256, 1)           # 1 x 4096 tokens
+
+
+def train_tenant(stream=None):
+    """Phase 5's train tenant, made from ``LM_SEED`` (on ``stream`` if given)."""
+    from repro_torch.runtime.lm_train import make_train_tenant
+
+    cfg, shape = lm_train_config()
+    return make_train_tenant(f"{cfg.name}-{LM_LAYERS}L:{shape.name}", cfg, LM_SHARES["train"],
+                             shape.seq_len, shape.global_batch, seed=LM_SEED, stream=stream)
+
+
+def phase_lm_reference(torch):
+    """(a) One train step of a small f32 model on the card against the CPU:
+    the loss, every gradient leaf and the updated parameters."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline, batch_to_device
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import (
+        OptConfig, adamw_update, init_opt_state, tree_leaves, tree_unflatten,
+    )
+
+    cfg = get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")   # the kernels' D
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, decay_steps=1000)
+    batch = DataPipeline(cfg.vocab_size, 640, 2, seed=7).batch(0)
+    batch["labels"][0, 500:530] = -1                                 # masked labels
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = init_params(cfg, seed=6, device="cpu")
+        leaves = [p.to(device).requires_grad_(True) for p in tree_leaves(params)]
+        params = tree_unflatten(params, leaves)
+        total, _ = loss_fn(params, batch_to_device(batch, device), cfg)
+        grads = torch.autograd.grad(total, leaves)
+        params, _, _ = adamw_update(params, tree_unflatten(params, grads),
+                                    init_opt_state(params), opt_cfg)
+        out[device] = (total.item(), [g.cpu() for g in grads],
+                       [p.detach().cpu() for p in tree_leaves(params)])
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_gpu, g_cpu))
+    param_err = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
+    say(f"[5] (a) small model ({cfg.name}, D=128, f32, TF32 off, 2 x 640 tokens): card vs CPU "
+        f"loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {loss_err:.2e}, bound {LM_LOSS_TOL:g}); "
+        f"worst gradient leaf {grad_err:.2e} of its norm (bound {LM_GRAD_TOL:g}); updated "
+        f"parameters max abs diff {param_err:.2e} (bound {LM_PARAM_TOL:g})")
+    if not (loss_err <= LM_LOSS_TOL and grad_err <= LM_GRAD_TOL and param_err <= LM_PARAM_TOL):
+        fail("small model: a train step on the card differs from the CPU's")
+
+
+def lm_losses(state) -> list[float]:
+    return [m["loss"].item() for m in state[2]]
+
+
+def phase_lm_train(torch, card):
+    """(b) The train tenant at llama3-8b's widths, 4 of 32 layers, alone."""
+    import math
+
+    from repro_torch.models.model import count_params_analytic
+
+    cfg, shape = lm_train_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tenant = train_tenant()
+    torch.cuda.synchronize()
+    say(f"[5] (b) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {LM_LAYERS} of 32 layers, "
+        f"{cfg.dtype}, remat {cfg.remat}; {count_params_analytic(cfg) / 1e9:.3f} B params; "
+        f"{shape.global_batch} x {shape.seq_len} markov tokens; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    state, ms = tenant.state, []
+    for _ in range(LM_STEPS):
+        t1 = time.perf_counter()
+        state = tenant.step_fn(state)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (m, t) in enumerate(zip(state[2], ms)):
+        say(f"[5] (b) step {i + 1:2d}: loss {m['loss'].item():.4f} grad_norm "
+            f"{m['grad_norm'].item():.4f} lr {m['lr'].item():.3e}  {t:.1f} ms")
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    say(f"[5] (b) {LM_STEPS} steps: first {ms[0]:.1f} ms, median of the rest {steady:.2f} ms "
+        f"per step (synchronized, unprofiled), peak device memory {peak:.1f} GiB, flash "
+        f"launches {launches['flash_attention']}  ({card})")
+    losses = lm_losses(state)
+    norms = [m["grad_norm"].item() for m in state[2]]
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail("train tenant: a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"train tenant: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    if launches["flash_attention"] != 2 * LM_LAYERS * LM_STEPS:
+        fail(f"train tenant: {launches['flash_attention']} flash launches, expected "
+             f"{2 * LM_LAYERS * LM_STEPS} (forward and block-remat recompute of each layer)")
+
+
+def phase_lm_pair(torch, card):
+    """(c) The train tenant co-run with phase 3's decode tenant on two
+    streams, then each alone; each run starts from the seeds."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.multitenant import FusedCoRunner
+
+    dec_cfg = get_config("llama3-8b")
+    steps = {"train": LM_STEPS, "decode": DECODE_STEPS}
+    # each step launches the flash kernel twice a layer (forward, remat
+    # recompute) and decode attention once a layer
+    expect = {"flash_attention": 2 * LM_LAYERS * LM_STEPS,
+              "decode_attention": dec_cfg.n_layers * DECODE_STEPS, "rmsnorm": 0}
+
+    def run(roles):
+        """Make the tenants of ``roles`` from their seeds and run them.
+        Returns, by role, the tenant's name, its finish time and what is
+        compared (the train tenant's losses, the decode tenant's last
+        logits), then the quanta, the launches and the peak memory."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        made = {}
+        if "train" in roles:
+            made["train"] = train_tenant(torch.cuda.Stream())
+        if "decode" in roles:
+            made["decode"] = make_decode(torch, dec_cfg, LM_SHARES["decode"], torch.cuda.Stream())
+        torch.cuda.synchronize()
+        reset_launches()
+        runner = FusedCoRunner(list(made.values()), {t.name: steps[r] for r, t in made.items()},
+                               quanta_per_cycle=4)
+        finish = runner.run()
+        launches = read_launches()
+        names = {r: t.name for r, t in made.items()}
+        outputs = {r: lm_losses(t.state) if r == "train" else t.state[2]
+                   for r, t in made.items()}
+        return (names, {r: finish[n] for r, n in names.items()}, outputs,
+                dict(zip(names.values(), runner.quanta)), launches,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    names, finish, co, quanta, launches, peak = run(("train", "decode"))
+    say(f"[5] (c) co-run on two streams, quanta {quanta}, kernel launches {launches} (expected "
+        f"{expect}), peak device memory {peak:.1f} GiB")
+    if launches != expect:
+        fail(f"the train pair's co-run launched {launches} kernels, expected {expect}")
+    solo, solo_out = {}, {}
+    for role in ("train", "decode"):
+        _, fin, outputs, _, _, solo_peak = run((role,))
+        solo[role], solo_out[role] = fin[role], outputs[role]
+        say(f"[5] (c) {names[role]} alone: {solo[role]:.3f} s, peak device memory "
+            f"{solo_peak:.1f} GiB")
+    for role, name in names.items():
+        say(f"[5] (c) {name}: co-run finish {finish[role]:.3f} s, solo {solo[role]:.3f} s  "
+            f"({card})")
+    makespan, ts = max(finish.values()), sum(solo.values())
+    say(f"[5] (c) co-run makespan {makespan:.3f} s / time sharing {ts:.3f} s = "
+        f"{makespan / ts:.3f}  ({card})")
+    got, ref = co["decode"], solo_out["decode"]
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        fail(f"{names['decode']}: logits of shape {tuple(got.shape)} or non-finite")
+    rel = row_rel_err(torch, got, ref)
+    if not rel <= ROW_TOL["bfloat16"]:
+        fail(f"{names['decode']}: co-run logits differ from the solo run's by {rel:.3e} "
+             "(row relative)")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(co["train"], solo_out["train"]))
+    say(f"[5] (c) {names['decode']}: co-run vs solo logits row relative {rel:.3e}; "
+        f"{names['train']}: co-run vs solo losses of {LM_STEPS} steps within {loss_rel:.2e} "
+        f"relative (bound {LM_CORUN_LOSS_TOL:g}); last loss {co['train'][-1]:.4f} co-run, "
+        f"{solo_out['train'][-1]:.4f} solo")
+    if len(co["train"]) != LM_STEPS or not loss_rel <= LM_CORUN_LOSS_TOL:
+        fail(f"{names['train']}: co-run losses differ from the solo run's")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -650,9 +879,12 @@ def main() -> None:
     pair = phase_pair(torch, card)
     phase_reference(torch)
     train = phase_train(torch, card)
-    # launches on the main paths: the co-run pair and training (no path of
-    # the package calls rmsnorm)
-    launches = {name: pair[name] + train[name] for name in pair}
+    phase_lm_reference(torch)
+    phase_lm_train(torch, card)
+    lm_pair = phase_lm_pair(torch, card)
+    # launches on the main paths: the co-run pair, training the co-scheduler
+    # and the train pair (no path of the package calls rmsnorm)
+    launches = {name: pair[name] + train[name] + lm_pair[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -2,7 +2,8 @@
 
 Both packages keep parameters as nested dicts with the same keys, and the
 dense model's layer parameters stacked on a leading ``L`` axis (the
-reference's vmapped init), so conversion is a leaf-by-leaf copy.  A DQN
+reference's vmapped init), so conversion is a leaf-by-leaf copy; the same
+holds for the model's AdamW state.  A DQN
 agent carries its online and target parameters and its Adam state
 (``m``, ``v``, ``t``), so training continues across the packages.  Inputs
 are numpy trees (``jax.device_get`` of the reference's params); a bfloat16
@@ -35,6 +36,16 @@ def model_params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet")
     return {k: model_params_from_jax(v, cfg, device) if isinstance(v, dict) else _leaf(v, device)
             for k, v in np_tree.items()}
+
+
+def opt_state_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
+    """The reference's AdamW state (``jax.device_get`` of ``init_opt_state``
+    or ``adamw_update``'s result) as the port's: f32 ``master``, ``m`` and
+    ``v`` trees and the int32 step ``count``."""
+    out = {k: model_params_from_jax(np_tree[k], cfg, device) for k in ("master", "m", "v")}
+    out["count"] = torch.tensor(int(np.asarray(np_tree["count"])), dtype=torch.int32,
+                                device=device)
+    return out
 
 
 def dqn_params_from_numpy(d: dict, device="cuda") -> dict:

@@ -12,6 +12,13 @@ wrapper uses it only for tensors on the CPU.
 Contract: query i sits at position ``i + Skv - Sq`` (right-aligned, as a
 prefill continuation), the kv head of q head h is ``h // (Hq // Hkv)``, and
 a row with no visible key gives 0.
+
+Gradients: :func:`flash_attention` runs through an autograd Function
+whose forward is that dispatch and whose backward is
+:func:`flash_attention_bwd`, written in PyTorch tensor ops and the same on
+both devices (with grad disabled, or no input requiring it, the Function
+records no graph).  The reference has no backward kernel: XLA differentiates
+its chunked jnp form (``repro/kernels/flash_attention/ref.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _Q_CHUNK = 2048   # query rows per dense product in the plain version
+_BWD_Q_CHUNK = 512   # query rows per recomputed score block in the backward
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None = None):
@@ -57,10 +65,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
     return out.to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
-    """Flash attention; the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  ``flash_attention.launches`` counts
-    kernel launches."""
+def _flash_forward(q, k, v, causal: bool, scale: float | None):
+    """The CUDA kernel for tensors on the card, the plain version for
+    tensors on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     B, Sq, Hq, D = q.shape
@@ -92,6 +99,105 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def _heads_first(t, Hkv: int):
+    """(B, S, Hkv * g, D) -> f32 (B, Hkv, S * g, D): one kv head's query
+    rows, each position's g heads side by side, as one matrix."""
+    B, S, H, D = t.shape
+    return t.float().reshape(B, S, Hkv, H // Hkv, D).transpose(1, 2).reshape(B, Hkv, -1, D)
+
+
+def _like(t, dtype):
+    """A contiguous copy of ``t`` in ``dtype`` (one pass)."""
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+
+
+@torch.no_grad()
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, scale: float | None = None):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` (FlashAttention-2's
+    backward), in the dtypes of q, k and v.
+
+    For each block of ``_BWD_Q_CHUNK`` query rows and each kv head the
+    scores are recomputed in f32 against the keys the block can see, and
+
+        P  = softmax(scale * Q K^T)         (right-aligned causal mask)
+        dV += P^T dO,   dP = dO V^T,   Delta = rowsum(dO * O),
+        dS = P * (dP - Delta),
+        dQ = scale * dS K,   dK += scale * dS^T Q,
+
+    all in f32.  A kv head's g query heads are stacked as rows of one
+    matrix, so each product covers them at once and dK and dV sum over
+    them; a block is some 15 launches.  A row with no visible key has
+    P = 0 and gets zero gradients."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    dev = q.device
+    qs = _heads_first(q, Hkv).mul_(scale)                     # (B, Hkv, Sq*g, D), scaled
+    do = _heads_first(dout, Hkv)
+    delta = _heads_first((dout.float() * out.float()).sum(-1, keepdim=True), Hkv)
+    kf, vf = (t.float().transpose(1, 2).contiguous() for t in (k, v))   # (B, Hkv, Skv, D)
+    ks = kf * scale
+    dq = torch.zeros((B, Hkv, Sq * g, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Hkv, Skv, D), dtype=torch.float32, device=dev)
+    for lo in range(0, Sq, _BWD_Q_CHUNK):
+        hi = min(Sq, lo + _BWD_Q_CHUNK)
+        # keys past the block's last visible one take no part
+        kv_hi = min(Skv, hi + Skv - Sq) if causal else Skv
+        if kv_hi <= 0:
+            continue                                          # no row sees a key
+        rows = slice(lo * g, hi * g)
+        if causal:
+            qpos = (torch.arange(lo, hi, device=dev) + (Skv - Sq)).repeat_interleave(g)
+            masked = qpos[:, None] < torch.arange(kv_hi, device=dev)[None, :]
+        for h in range(Hkv):
+            kh, vh = kf[:, h, :kv_hi], vf[:, h, :kv_hi]       # (B, kv, D)
+            qh, doh = qs[:, h, rows], do[:, h, rows]          # (B, sq*g, D)
+            s = torch.bmm(qh, kh.mT)                          # (B, sq*g, kv)
+            if causal:
+                s.masked_fill_(masked, -torch.inf)
+            m = s.amax(dim=-1, keepdim=True).nan_to_num_(neginf=0.0)   # fully masked rows
+            p = s.sub_(m).exp_()
+            p.div_(p.sum(dim=-1, keepdim=True).clamp_min_(1e-30))
+            dv[:, h, :kv_hi].baddbmm_(p.mT, doh)
+            ds = torch.bmm(doh, vh.mT).sub_(delta[:, h, rows]).mul_(p)
+            torch.bmm(ds, ks[:, h, :kv_hi], out=dq[:, h, rows])
+            dk[:, h, :kv_hi].baddbmm_(ds.mT, qh)
+    dq = dq.reshape(B, Hkv, Sq, g, D).transpose(1, 2).reshape(B, Sq, Hq, D)
+    return _like(dq, q.dtype), _like(dk.transpose(1, 2), k.dtype), _like(dv.transpose(1, 2),
+                                                                            v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward dispatch of :func:`flash_attention` with
+    :func:`flash_attention_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Flash attention; the CUDA kernel for tensors on the card, the plain
+    version for tensors on the CPU, differentiable through
+    :func:`flash_attention_bwd`.
+    ``flash_attention.launches`` counts kernel launches (forward only)."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 flash_attention.launches = 0

@@ -1,6 +1,8 @@
 """Model API of the port (dense decoder family).
 
     init_params(cfg, seed, device)            -> params dict
+    loss_fn(params, batch, cfg)               -> (loss, metrics)      [train]
+    forward_train(params, batch, cfg)         -> (logits, aux)        [train]
     prefill(params, tokens, cfg, max_len)     -> (logits_last, cache)
     init_cache(params, cfg, batch, max_len)   -> cache dict
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
@@ -15,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_init, ones_init, pdtype, rmsnorm
@@ -47,6 +50,73 @@ def _logits(p, x, cfg):
     w = p["emb"].T if cfg.tie_embeddings else p["lm_head"]
     return (h @ w.to(h.dtype)).float()
 
+
+# ===========================================================================
+# Training
+# ===========================================================================
+
+def _train_stack(params, tokens, cfg):
+    _require_dense(cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = _embed(params, tokens, cfg)
+    return tfm.dense_stack_train(params["layers"], x, cfg, positions)
+
+
+def forward_train(params, batch, cfg):
+    """batch: {"tokens": (B, S) int} -> (logits (B, S, V) f32, aux)."""
+    x, aux = _train_stack(params, batch["tokens"], cfg)
+    return _logits(params, x, cfg), aux
+
+
+LOSS_CHUNK = 512  # sequence-chunked CE: per-chunk logits only (memory cap)
+
+
+def _chunk_ce(params, x_c, labels_c, cfg):
+    """CE sums for one token chunk; checkpointed, so its logits are transient.
+
+    The gold logit is a ``gather``; the reference contracts a one-hot (to
+    keep the vocab axis shardable under GSPMD) and gets the same value."""
+    with torch.profiler.record_function("chunked_ce"):
+        logits = _logits(params, x_c, cfg)                     # (B, sc, V) f32
+        mask = (labels_c >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels_c.clamp_min(0).long()[..., None])[..., 0]
+        ce_sum = ((lse - gold) * mask).sum()
+        z_sum = (lse * mask).square().sum()
+        return ce_sum, z_sum, mask.sum()
+
+
+def loss_fn(params, batch, cfg):
+    """Next-token CE + z-loss. labels: (B, S) int, -1 = masked.
+
+    The unembedding + CE is sequence-chunked (each chunk of ``LOSS_CHUNK``
+    tokens checkpointed): the (B, S, V) logits are never alive at once, at
+    the cost of one more logits product in the backward.  Returns
+    ``(total, metrics)``; the metrics are detached 0-dim tensors with the
+    reference's keys."""
+    x, aux = _train_stack(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    S = labels.shape[1]
+    sc = min(LOSS_CHUNK, S)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    ce_sum, z_sum, n_tok = zero, zero, zero
+    for lo in range(0, S, sc):
+        c, z, n = checkpoint(_chunk_ce, params, x[:, lo:lo + sc], labels[:, lo:lo + sc], cfg,
+                             use_reentrant=False)
+        ce_sum, z_sum, n_tok = ce_sum + c, z_sum + z, n_tok + n
+
+    n_tok = torch.clamp(n_tok, min=1.0)
+    loss = ce_sum / n_tok
+    z_loss = 1e-4 * z_sum / n_tok
+    total = loss + z_loss + aux["moe_aux"] + aux["moe_z"]
+    metrics = {"loss": loss.detach(), "z_loss": z_loss.detach(), "moe_aux": aux["moe_aux"],
+               "moe_drop_frac": aux["moe_drop_frac"], "tokens": n_tok.detach()}
+    return total, metrics
+
+
+# ===========================================================================
+# Inference
+# ===========================================================================
 
 def init_cache(params, cfg, batch: int, max_len: int) -> dict:
     _require_dense(cfg)

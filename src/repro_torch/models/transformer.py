@@ -4,10 +4,13 @@ Layer parameters are stacked on a leading ``L`` axis, as the reference's
 vmapped init leaves them, and the stack is a Python loop over layers (the
 reference's ``lax.scan``).  The KV cache is one real (L, B, Smax, Hkv, D)
 tensor per K and V; each layer reads and writes its own slice in place.
+The training form, :func:`dense_stack_train`, checkpoints each layer when
+``cfg.remat == "block"`` (the reference's ``_maybe_remat``).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attn_apply, attn_decode, init_attn, init_kv_cache
 from repro_torch.models.layers import ones_init, rmsnorm
@@ -59,6 +62,40 @@ def dense_stack_apply(stacked, x, cfg, positions, kv_out: dict | None = None):
             kv_out["k"][i].copy_(k)
             kv_out["v"][i].copy_(v)
     return x
+
+
+def zero_aux(device) -> dict:
+    """The reference's ``ZERO_AUX``: the MoE losses of a stack without MoE."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("moe_aux", "moe_z", "moe_drop_frac")}
+
+
+def _unstack(stacked: dict, n: int) -> list[dict]:
+    """Each layer's parameters as views cut by one ``unbind`` per leaf: its
+    backward stacks a leaf's layer gradients once, where indexing layer by
+    layer would add up one full-size gradient per layer."""
+    out = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
+
+
+def dense_stack_train(stacked, x, cfg, positions):
+    """The stack over the full sequence with autograd, for training; returns
+    ``(x, aux)`` as the reference's ``dense_stack_apply`` does.  With
+    ``cfg.remat == "block"`` each layer is a checkpoint: its activations are
+    recomputed in the backward, which runs its attention forward again."""
+    def layer(p, x):
+        return decoder_layer_apply(p, x, cfg, positions)[0]
+
+    for p in _unstack(stacked, cfg.n_layers):
+        if cfg.remat == "block":
+            x = checkpoint(layer, p, x, use_reentrant=False)
+        else:
+            x = layer(p, x)
+    return x, zero_aux(x.device)
 
 
 def dense_stack_decode(stacked, x_t, cache, pos, cfg):

@@ -345,3 +345,73 @@ def test_short_training_run_on_card(card, extra):
         b = RLScheduler(cpu, env_cfg).schedule(queue)
         assert [p.label for p in a.partitions] == [p.label for p in b.partitions]
         assert [[j.name for j in g] for g in a.groups] == [[j.name for j in g] for g in b.groups]
+
+
+# the backward: the autograd Function on the card (forward: the kernel)
+# against flash_attention_bwd on the CPU, fed the card's forward output so
+# that only the backward is compared; ragged Sq, Sq < Skv and Sq > Skv
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Skv,causal", [(200, 200, True), (77, 333, True),
+                                           (333, 77, True), (129, 250, False)])
+def test_flash_backward_on_card_matches_cpu(card, dtype, Sq, Skv, causal):
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    rng = np.random.default_rng(Sq * 5 + Skv)
+    B, Hq, Hkv, D = 2, 8, 2, 128
+    q, k, v = (_randn(rng, s, dtype, card).requires_grad_(True)
+               for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    dout = _randn(rng, (B, Sq, Hq, D), dtype, card)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_bwd(*(t.detach().cpu() for t in (q, k, v, out, dout)), causal, None)
+    for g, r in zip(grads, ref):
+        assert g.dtype == r.dtype == dtype and torch.isfinite(g).all()
+    # a row that sees one key has P = 1 and dq = 0 but for the rounding of
+    # dP - Delta (two sums of the same products in another order), so its
+    # dq is held to the row tolerance of the median norm of the rows that see
+    # more keys; the rest of dq, and dk and dv, row by row
+    seen = (torch.arange(Sq) + Skv - Sq + 1).clamp(0, Skv) if causal else torch.full((Sq,), Skv)
+    one = seen == 1
+    dq, ref_dq = grads[0].cpu(), ref[0]
+    typical = ref_dq[:, seen > 1].float().flatten(0, -2).norm(dim=-1).median()
+    assert (dq[:, one].float().flatten(0, -2).norm(dim=-1) <= ROW_TOL[dtype] * typical).all()
+    _assert_rows_close(dq[:, ~one], ref_dq[:, ~one], dtype)
+    for g, r in zip(grads[1:], ref[1:]):
+        _assert_rows_close(g.cpu(), r, dtype)
+    if causal and Sq > Skv:
+        assert torch.all(dq[:, :Sq - Skv] == 0), "rows with no visible key: zero dq"
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """Two train steps of a small f32 model on the card and on the CPU:
+    the losses within 1e-5 relative, the parameters within 2e-5 (as
+    ``chip_smoke.py`` phase 5 bounds them), and the flash kernel launched
+    twice a layer a step (forward and block-remat recompute)."""
+    from repro_torch.data import DataPipeline, batch_to_device
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.runtime.lm_train import train_step
+
+    cfg = _small_cfg()
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, decay_steps=1000)
+    batch = DataPipeline(cfg.vocab_size, 200, 2, seed=4).batch(0)
+    out = {}
+    for device in ("cpu", card):
+        params = _to(tm.init_params(cfg, seed=5, device="cpu"), device)
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        opt, b = init_opt_state(params), batch_to_device(batch, device)
+        before = flash_attention.launches
+        losses = []
+        for _ in range(2):
+            params, opt, m = train_step(params, opt, b, cfg, opt_cfg)
+            losses.append(m["loss"].item())
+        launched = flash_attention.launches - before
+        out[str(device)] = (losses, [p.detach().cpu() for p in tree_leaves(params)], launched)
+    (lc, pc, nc), (lg, pg, ng) = out["cpu"], out[str(card)]
+    assert nc == 0 and ng == 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(pg, pc):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5)

@@ -30,11 +30,14 @@ assert not leaked, leaked
 print(" ".join(names))
 """
 
-# the training slice's modules and the third kernel, among the 48 imported
+# the training slice's modules and the third kernel
 SLICE_2 = {"repro_torch.core.baselines", "repro_torch.core.metrics",
            "repro_torch.core.perfmodel_vec", "repro_torch.core.replay",
            "repro_torch.core.train", "repro_torch.kernels.rmsnorm",
            "repro_torch.kernels.rmsnorm.ops"}
+# the LM training slice's modules; 53 modules in all
+SLICE_5 = {"repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
+           "repro_torch.optim.adamw", "repro_torch.runtime.lm_train"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -43,4 +46,4 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 48 and SLICE_2 <= names, out.stdout
+    assert len(names) >= 53 and SLICE_2 | SLICE_5 <= names, out.stdout

@@ -7,7 +7,12 @@ First the co-scheduler's training engine (``core/train.py``) at
 ``chip_smoke.py``'s phase 4 settings (16 envs, window 8): after warm-up
 steps that fill the replay ring past one batch, 5 engine steps run under
 ``torch.profiler``, once with the perfmodel replayed from its CUDA graph
-(the training path) and once launched kernel by kernel.  Then the pair of
+(the training path) and once launched kernel by kernel.  Then one step of
+``chip_smoke.py``'s LM train tenant (llama3-8b widths, 4 layers, 1 x 4096
+tokens, block remat) after two warm-up steps, its kernels filed as flash
+forward, attention backward, chunked CE, AdamW, cuBLAS and other (below),
+and, off the path, the attention backward alone at one layer's shape
+beside ``scaled_dot_product_attention``'s backward.  Then the pair of
 ``chip_smoke.py`` (prefill 1 x 8192 tokens, decode batch 4 against a
 32768-slot cache, full width, bf16): one prefill step alone, one decode
 step alone, and one co-run macro-step of ``FusedCoRunner`` (both tenants on
@@ -36,6 +41,11 @@ import chip_smoke  # noqa: E402  (shares the pair's set-up)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
                 "cuLaunchKernel")
 TRAIN_STEPS = 5
+# the LM train step's classes: code regions the package marks with
+# ``torch.profiler.record_function`` (the CE's forward ops also mark their
+# backward nodes, by autograd sequence number), then kernel names
+REGIONS = {"flash_attention_bwd": "attention backward", "chunked_ce": "chunked CE",
+           "adamw": "AdamW"}
 CLASSES = (("flash_attention", ("flash_fwd",)),
            ("decode_attention", ("decode_split", "decode_combine")),
            ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_regs_kernel")),
@@ -63,9 +73,60 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile(torch, label: str, fn, out_dir: Path, keep: bool = True) -> dict:
+def region_spans(events: list, fwd_tid) -> list[tuple]:
+    """``(tid, start, end, class)`` of every marked region of :data:`REGIONS`,
+    and of each backward node whose forward op ran inside a marked region on
+    the forward thread ``fwd_tid`` (autograd runs those nodes on its own
+    thread, outside the region; the trace links a node to its forward op by
+    sequence number)."""
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"], REGIONS[e["name"]]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in REGIONS]
+    fwd = [sp for sp in spans if sp[0] == fwd_tid]
+    seq_class = {}
+    for e in events:
+        seq = e.get("args", {}).get("Sequence number")
+        if e.get("cat") != "cpu_op" or seq is None or e["tid"] != fwd_tid:
+            continue
+        for _, a, b, cls in fwd:
+            if a <= e["ts"] < b:
+                seq_class[seq] = cls
+    for e in events:
+        seq = e.get("args", {}).get("Sequence number")
+        if (e.get("cat") == "cpu_op" and e["name"].startswith("autograd::engine::evaluate_function")
+                and seq in seq_class):
+            spans.append((e["tid"], e["ts"], e["ts"] + e["dur"], seq_class[seq]))
+    return spans
+
+
+def train_step_classes(events: list, kernels: list, fwd_tid) -> list[str]:
+    """The class of each kernel of an LM train step: flash forward by name;
+    then attention backward, chunked CE or AdamW when the host call that
+    launched it lies in one of :func:`region_spans`; then cuBLAS by name;
+    else other."""
+    launches = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    spans: dict = {}
+    for tid, a, b, cls in region_spans(events, fwd_tid):
+        spans.setdefault(tid, []).append((a, b, cls))
+    out = []
+    for k in kernels:
+        by_name = kernel_class(k["name"])
+        if by_name == "flash_attention":
+            out.append("flash forward")
+            continue
+        tid, ts = launches.get(k.get("args", {}).get("correlation"), (None, None))
+        hit = {cls for a, b, cls in spans.get(tid, ()) if a <= ts <= b}
+        cls = next((c for c in REGIONS.values() if c in hit), None)
+        out.append(cls or ("cuBLAS" if by_name == "matmul (cuBLAS)" else "other"))
+    return out
+
+
+def profile(torch, label: str, fn, out_dir: Path, keep: bool = True, classes=None) -> dict:
     """Run ``fn`` under the profiler; its trace stays in ``out_dir`` when
-    ``keep`` (a training trace holds some 10^5 kernels and is not kept)."""
+    ``keep`` (a training trace holds some 10^5 kernels and is not kept).
+    ``classes(events, kernels)`` names each kernel's class (by default
+    :func:`kernel_class` of its name)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -84,9 +145,11 @@ def profile(torch, label: str, fn, out_dir: Path, keep: bool = True) -> dict:
         chip_smoke.fail(f"{label}: the profiler recorded no device kernels")
     # a class's time is the union of its kernels' intervals: decode's combine
     # pass starts early and waits for the split kernel, and is not counted twice
+    names = (classes(events, kernels) if classes is not None
+             else [kernel_class(e["name"]) for e in kernels])
     intervals: dict[str, list] = {}
-    for e in kernels:
-        intervals.setdefault(kernel_class(e["name"]), []).append((e["ts"], e["ts"] + e["dur"]))
+    for e, cls in zip(kernels, names):
+        intervals.setdefault(cls, []).append((e["ts"], e["ts"] + e["dur"]))
     by_class = {c: busy_us(iv) for c, iv in intervals.items()}
     busy = busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels])
     span = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
@@ -131,6 +194,82 @@ def train_engine(torch, cuda_graphs: bool):
     return eng
 
 
+def lm_train_step(torch, out_dir: Path) -> dict:
+    """One step of phase 5's train tenant under the profiler, after two
+    warm-up steps."""
+    import threading
+
+    from repro_torch.optim import tree_leaves
+
+    tenant = chip_smoke.train_tenant()
+    state = tenant.state
+    for _ in range(2):
+        state = tenant.step_fn(state)
+    holder = [state]
+
+    def one():
+        holder[0] = tenant.step_fn(holder[0])
+
+    tid = threading.get_native_id()
+    rec = profile(torch, "lm_train_step", one, out_dir, keep=False,
+                  classes=lambda events, kernels: train_step_classes(events, kernels, tid))
+    cfg, _ = chip_smoke.lm_train_config()
+    rec["attention_backward_ms_per_layer"] = (
+        rec["device_ms_by_class"].get("attention backward", 0.0) / cfg.n_layers)
+    # AdamW's least work: each bf16 gradient read, the f32 master, m and v
+    # read and written, the bf16 parameter written (28 bytes), and about 12
+    # f32 operations, a parameter
+    n = sum(p.numel() for p in tree_leaves(holder[0][0]))
+    rec["adamw_params"] = n
+    rec["adamw_bound_ms"], rec["adamw_bound_by"] = chip_smoke.bound(28.0 * n, 12.0 * n,
+                                                                    "float32")
+    chip_smoke.say(f"[profile] lm_train_step: attention backward "
+                   f"{rec['attention_backward_ms_per_layer']:.3f} ms per layer; AdamW "
+                   f"{rec['device_ms_by_class'].get('AdamW', 0.0):.3f} ms, bound "
+                   f"{rec['adamw_bound_ms']:.3f} ms ({rec['adamw_bound_by']}) over {n} "
+                   f"parameters")
+    return rec
+
+
+def attention_backward_alone(torch) -> dict:
+    """Off the path: ``flash_attention_bwd`` at one layer's shape of the
+    train step (1 x 4096 tokens, 32/8 heads of 128, causal, bf16) beside
+    ``scaled_dot_product_attention``'s backward (``enable_gqa=True``) on the
+    same inputs, as device time over repeated calls, and the bound of the
+    backward's five products (each input read once, each gradient written
+    once)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+
+    cfg, shape = chip_smoke.lm_train_config()
+    S, Hq, Hkv, D = shape.seq_len, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator("cuda").manual_seed(41)
+    q, dout = (torch.randn((1, S, Hq, D), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.randn((1, S, Hkv, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    with torch.no_grad():
+        out = flash_attention(q, k, v, causal=True)
+    ours = chip_smoke.time_ms(torch, lambda: flash_attention_bwd(q, k, v, out, dout, True, None),
+                              3)
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    do = dout.transpose(1, 2)
+    lib = chip_smoke.time_ms(
+        torch, lambda: torch.autograd.grad(o, (qs, ks, vs), do, retain_graph=True), 10)
+    pairs = float(np.arange(1, S + 1).sum())
+    bound, by = chip_smoke.bound((4 * S * Hq * D + 4 * S * Hkv * D) * 2,
+                                 10.0 * Hq * D * pairs, "bfloat16")
+    rec = {"shape": f"1 x {S}, Hq {Hq}, Hkv {Hkv}, D {D}, causal, bf16",
+           "flash_attention_bwd_ms": ours, "sdpa_backward_ms": lib, "bound_ms": bound,
+           "bound_by": by}
+    chip_smoke.say(f"[profile] attention backward alone: {json.dumps(rec)}")
+    return rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
@@ -149,6 +288,10 @@ def main() -> None:
         recs[label] = profile(torch, label, lambda: [eng.step() for _ in range(TRAIN_STEPS)],
                               out_dir, keep=False)
         del eng
+
+    recs["lm_train_step"] = lm_train_step(torch, out_dir)
+    recs["attention_backward_alone"] = attention_backward_alone(torch)
+    torch.cuda.empty_cache()
 
     _, tenants = chip_smoke.make_pair(torch)
     pre, dec = (t.name for t in tenants(("prefill", "decode")))
