@@ -48,7 +48,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
    times.  (c) That tenant (share 0.75, 24 steps) co-run with phase 3's
    decode tenant (share 0.25, 8 steps) on two streams, then each alone, as
    phase 3 reports its pair; the decode logits and the train losses of the
-   co-run must equal the solo runs' within the stated bounds.
+   co-run must equal the solo runs' within the stated bounds.  (d) Step 4
+   of ``examples/co_schedule.py`` as written: that llama train tenant
+   (share 0.75, 24 steps) beside an xlstm-125m train tenant at full width
+   and depth (share 0.25, 8 steps, 32 x 1024 markov tokens, the zoo's
+   ``train_4k`` shape for that job) on two streams, then each alone; it
+   fails unless the co-run launched exactly 2 x 4 x 24 flash kernels and no
+   other hand-written kernel, each tenant's co-run losses equal its solo
+   losses, and the xLSTM losses are finite and fall.  One more xLSTM step
+   runs under the profiler for its device launches and device time.  (e)
+   One f32 train step of xlstm-125m's smoke config on the card against the
+   CPU (the bounds of (a)), ``prefill`` and 16 ``decode_step``s card
+   against CPU, then 8 timed decode steps of xlstm-125m at full width on
+   the zoo's decode_32k job (batch 128).
+6. The online cluster of ``examples/online_cluster.py`` at its defaults
+   (poisson trace of 80 arrivals at load 1.25, window 8, one pod of 8, hash
+   router, concurrent): time sharing, the greedy packer, phase 4's agent on
+   the card and a CPU copy of it, then the agent with periodic re-training
+   on the card and telemetry on.  It fails unless the card's RL run equals
+   the CPU's key for key, RL reaches 0.99 x time sharing's throughput, the
+   telemetry registry agrees with ``summary()`` and the retrainer fired
+   and hot-swapped the agent.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -57,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -671,7 +692,7 @@ def phase_train(torch, card):
         f"rl <= oracle on every queue; kernel launches while training {launches}")
     if not mean_rl > 1.1:
         fail(f"the trained agent's mean throughput {mean_rl:.3f} is not above 1.1")
-    return launches
+    return launches, agent
 
 
 # ---------------------------------------------------------------------------
@@ -712,23 +733,23 @@ def train_tenant(stream=None):
                              shape.seq_len, shape.global_batch, seed=LM_SEED, stream=stream)
 
 
-def phase_lm_reference(torch):
-    """(a) One train step of a small f32 model on the card against the CPU:
-    the loss, every gradient leaf and the updated parameters."""
-    from repro_torch.configs import get_smoke_config
+def train_step_card_vs_cpu(torch, cfg, seq: int, seed: int) -> tuple[float, float, float]:
+    """One f32 train step of ``cfg`` (2 x ``seq`` markov tokens, 30 labels
+    masked) on the card and on the CPU from the same weights: returns the
+    loss's relative difference, the worst gradient leaf's difference over
+    its norm and the updated parameters' largest absolute difference."""
     from repro_torch.data import DataPipeline, batch_to_device
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.optim import (
         OptConfig, adamw_update, init_opt_state, tree_leaves, tree_unflatten,
     )
 
-    cfg = get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")   # the kernels' D
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, decay_steps=1000)
-    batch = DataPipeline(cfg.vocab_size, 640, 2, seed=7).batch(0)
+    batch = DataPipeline(cfg.vocab_size, seq, 2, seed=7).batch(0)
     batch["labels"][0, 500:530] = -1                                 # masked labels
     out = {}
     for device in ("cpu", "cuda"):
-        params = init_params(cfg, seed=6, device="cpu")
+        params = init_params(cfg, seed=seed, device="cpu")
         leaves = [p.to(device).requires_grad_(True) for p in tree_leaves(params)]
         params = tree_unflatten(params, leaves)
         total, _ = loss_fn(params, batch_to_device(batch, device), cfg)
@@ -741,12 +762,23 @@ def phase_lm_reference(torch):
     loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
     grad_err = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_gpu, g_cpu))
     param_err = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
-    say(f"[5] (a) small model ({cfg.name}, D=128, f32, TF32 off, 2 x 640 tokens): card vs CPU "
-        f"loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {loss_err:.2e}, bound {LM_LOSS_TOL:g}); "
-        f"worst gradient leaf {grad_err:.2e} of its norm (bound {LM_GRAD_TOL:g}); updated "
-        f"parameters max abs diff {param_err:.2e} (bound {LM_PARAM_TOL:g})")
+    say(f"    card vs CPU loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {loss_err:.2e}, bound "
+        f"{LM_LOSS_TOL:g}); worst gradient leaf {grad_err:.2e} of its norm (bound "
+        f"{LM_GRAD_TOL:g}); updated parameters max abs diff {param_err:.2e} (bound "
+        f"{LM_PARAM_TOL:g})")
     if not (loss_err <= LM_LOSS_TOL and grad_err <= LM_GRAD_TOL and param_err <= LM_PARAM_TOL):
-        fail("small model: a train step on the card differs from the CPU's")
+        fail(f"{cfg.name}: a train step on the card differs from the CPU's")
+    return loss_err, grad_err, param_err
+
+
+def phase_lm_reference(torch):
+    """(a) One train step of a small f32 model on the card against the CPU:
+    the loss, every gradient leaf and the updated parameters."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")   # the kernels' D
+    say(f"[5] (a) small model ({cfg.name}, D=128, f32, TF32 off, 2 x 640 tokens):")
+    train_step_card_vs_cpu(torch, cfg, 640, seed=6)
 
 
 def lm_losses(state) -> list[float]:
@@ -797,11 +829,34 @@ def phase_lm_train(torch, card):
              f"{2 * LM_LAYERS * LM_STEPS} (forward and block-remat recompute of each layer)")
 
 
+def run_group(torch, makers: dict, steps: dict, output):
+    """Make a tenant of each role of ``makers`` (``maker(stream)``) from its
+    seeds, each on a stream of its own, and run them through
+    ``FusedCoRunner``.  Returns, by role, the tenant's name, its finish time
+    and ``output(role, tenant)``, then the quanta, the kernel launches and
+    the peak device memory in GiB."""
+    from repro_torch.runtime.multitenant import FusedCoRunner
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    made = {r: maker(torch.cuda.Stream()) for r, maker in makers.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    runner = FusedCoRunner(list(made.values()), {t.name: steps[r] for r, t in made.items()},
+                           quanta_per_cycle=4)
+    finish = runner.run()
+    launches = read_launches()
+    names = {r: t.name for r, t in made.items()}
+    return (names, {r: finish[n] for r, n in names.items()},
+            {r: output(r, t) for r, t in made.items()},
+            dict(zip(names.values(), runner.quanta)), launches,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
 def phase_lm_pair(torch, card):
     """(c) The train tenant co-run with phase 3's decode tenant on two
     streams, then each alone; each run starts from the seeds."""
     from repro_torch.configs import get_config
-    from repro_torch.runtime.multitenant import FusedCoRunner
 
     dec_cfg = get_config("llama3-8b")
     steps = {"train": LM_STEPS, "decode": DECODE_STEPS}
@@ -810,30 +865,13 @@ def phase_lm_pair(torch, card):
     expect = {"flash_attention": 2 * LM_LAYERS * LM_STEPS,
               "decode_attention": dec_cfg.n_layers * DECODE_STEPS, "rmsnorm": 0}
 
+    makers = {"train": train_tenant,
+              "decode": lambda stream: make_decode(torch, dec_cfg, LM_SHARES["decode"], stream)}
+
     def run(roles):
-        """Make the tenants of ``roles`` from their seeds and run them.
-        Returns, by role, the tenant's name, its finish time and what is
-        compared (the train tenant's losses, the decode tenant's last
-        logits), then the quanta, the launches and the peak memory."""
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        made = {}
-        if "train" in roles:
-            made["train"] = train_tenant(torch.cuda.Stream())
-        if "decode" in roles:
-            made["decode"] = make_decode(torch, dec_cfg, LM_SHARES["decode"], torch.cuda.Stream())
-        torch.cuda.synchronize()
-        reset_launches()
-        runner = FusedCoRunner(list(made.values()), {t.name: steps[r] for r, t in made.items()},
-                               quanta_per_cycle=4)
-        finish = runner.run()
-        launches = read_launches()
-        names = {r: t.name for r, t in made.items()}
-        outputs = {r: lm_losses(t.state) if r == "train" else t.state[2]
-                   for r, t in made.items()}
-        return (names, {r: finish[n] for r, n in names.items()}, outputs,
-                dict(zip(names.values(), runner.quanta)), launches,
-                torch.cuda.max_memory_allocated() / 2**30)
+        # the train tenant's losses, the decode tenant's last logits
+        return run_group(torch, {r: makers[r] for r in roles}, steps,
+                         lambda r, t: lm_losses(t.state) if r == "train" else t.state[2])
 
     names, finish, co, quanta, launches, peak = run(("train", "decode"))
     say(f"[5] (c) co-run on two streams, quanta {quanta}, kernel launches {launches} (expected "
@@ -869,6 +907,270 @@ def phase_lm_pair(torch, card):
     return launches
 
 
+# (d) step 4 of examples/co_schedule.py as written: the llama train tenant
+# of (b) beside an xlstm-125m train tenant at full width, on the zoo's own
+# shape for that job ("xlstm-125m", "train_4k", 8, 4): 32 x 1024 tokens
+XLSTM_STEPS, XLSTM_SEED = 8, 33
+STEP4_SHARES = {"train": 0.75, "xlstm": 0.25}
+
+
+def xlstm_train_config():
+    """(d)'s xLSTM tenant: xlstm-125m at its published widths and depth, on
+    ``scaled_shape(train_4k, 8, 4)`` = 32 x 1024 tokens."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+
+    return get_config("xlstm-125m"), scaled_shape(SHAPES["train_4k"], 8, 4)
+
+
+def xlstm_tenant(stream=None):
+    from repro_torch.runtime.lm_train import make_train_tenant
+
+    cfg, shape = xlstm_train_config()
+    return make_train_tenant(f"{cfg.name}:{shape.name}", cfg, STEP4_SHARES["xlstm"],
+                             shape.seq_len, shape.global_batch, seed=XLSTM_SEED, stream=stream)
+
+
+def device_launches(torch, fn) -> tuple[int, float]:
+    """Run ``fn`` once under ``torch.profiler`` (device activity only):
+    the work items the device ran (kernels, copies, fills) and their busy
+    time in ms (the union of their intervals).  Read from the profiler's raw
+    events, which is quick where building its event tree is not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, float("-inf")
+    for a, b in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    return len(spans), busy / 1e6
+
+
+def phase_step4_pair(torch, card):
+    """(d) The llama train tenant of (b) (share 0.75, 24 steps) co-run with
+    the xlstm-125m train tenant (share 0.25, 8 steps) on two streams, then
+    each alone; then one more xLSTM step under the profiler, for its
+    launches and its device time."""
+    from repro_torch.models.model import count_params_analytic
+
+    cfg, shape = xlstm_train_config()
+    steps = {"train": LM_STEPS, "xlstm": XLSTM_STEPS}
+    # the xLSTM tenant launches no hand-written kernel
+    expect = {"flash_attention": 2 * LM_LAYERS * LM_STEPS, "decode_attention": 0, "rmsnorm": 0}
+    say(f"[5] (d) step 4 as written: {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_layers} of {cfg.n_layers} layers ({cfg.n_layers // 2} mLSTM/sLSTM pairs, no "
+        f"depth cut), mLSTM inner {int(cfg.xlstm.expand_m * cfg.d_model)} in chunks of "
+        f"{cfg.xlstm.chunk}, vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; "
+        f"{count_params_analytic(cfg) / 1e6:.2f} M params; {shape.global_batch} x "
+        f"{shape.seq_len} markov tokens")
+    makers = {"train": train_tenant, "xlstm": xlstm_tenant}
+
+    def run(roles):
+        return run_group(torch, {r: makers[r] for r in roles}, steps,
+                         lambda r, t: lm_losses(t.state))
+
+    names, finish, co, quanta, launches, peak = run(("train", "xlstm"))
+    say(f"[5] (d) co-run on two streams, quanta {quanta}, kernel launches {launches} (expected "
+        f"{expect}), peak device memory {peak:.1f} GiB")
+    if launches != expect:
+        fail(f"step 4's co-run launched {launches} kernels, expected {expect}")
+    solo, solo_out = {}, {}
+    for role in ("train", "xlstm"):
+        _, fin, outputs, _, _, solo_peak = run((role,))
+        solo[role], solo_out[role] = fin[role], outputs[role]
+        say(f"[5] (d) {names[role]} alone: {solo[role]:.3f} s, peak device memory "
+            f"{solo_peak:.1f} GiB")
+    for role, name in names.items():
+        say(f"[5] (d) {name}: co-run finish {finish[role]:.3f} s, solo {solo[role]:.3f} s  "
+            f"({card})")
+    makespan, ts = max(finish.values()), sum(solo.values())
+    say(f"[5] (d) co-run makespan {makespan:.3f} s / time sharing {ts:.3f} s = "
+        f"{makespan / ts:.3f}  ({card})")
+    for role, n in steps.items():
+        rel = max(abs(a - b) / abs(b) for a, b in zip(co[role], solo_out[role]))
+        say(f"[5] (d) {names[role]}: co-run vs solo losses of {n} steps within {rel:.2e} "
+            f"relative (bound {LM_CORUN_LOSS_TOL:g}); loss {co[role][0]:.4f} -> "
+            f"{co[role][-1]:.4f}")
+        if len(co[role]) != n or not rel <= LM_CORUN_LOSS_TOL:
+            fail(f"{names[role]}: co-run losses differ from the solo run's")
+    losses = co["xlstm"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{names['xlstm']}: a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"{names['xlstm']}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+
+    tenant = xlstm_tenant()
+    state = tenant.step_fn(tenant.state)
+    n, busy = device_launches(torch, lambda: tenant.step_fn(state))
+    step_ms = 1e3 * solo["xlstm"] / XLSTM_STEPS
+    say(f"[5] (d) {names['xlstm']}: {step_ms:.1f} ms a step (solo run, first step included), "
+        f"{n} device launches a step and {busy:.1f} ms of device time (a second step, "
+        f"profiled): idle share {1 - busy / step_ms:.3f} of the unprofiled step  ({card})")
+    return launches
+
+
+def phase_xlstm_reference(torch, card):
+    """(e) xLSTM on the card against the CPU: one f32 train step of
+    xlstm-125m's smoke config, then ``prefill`` and 16 ``decode_step``s of
+    it; then 8 decode steps of xlstm-125m at full width on the zoo's
+    decode_32k job (batch 128), timed."""
+    from repro_torch.configs import SHAPES, get_config, get_smoke_config
+    from repro_torch.models import model as tm
+    from repro_torch.optim import tree_map
+
+    cfg = get_smoke_config("xlstm-125m").replace(dtype="float32")
+    say(f"[5] (e) {cfg.name} (f32, TF32 off, 2 x 600 tokens: the mLSTM pads its last chunk "
+        f"of {cfg.xlstm.chunk}):")
+    train_step_card_vs_cpu(torch, cfg, 600, seed=8)
+
+    cpu = tm.init_params(cfg, seed=9, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    gen = torch.Generator().manual_seed(10)
+    B, S = 4, 40
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 16), generator=gen)
+    lc, cc = tm.prefill(cpu, tokens[:, :S], cfg, S)
+    lg, cg = tm.prefill(gpu, tokens[:, :S].cuda(), cfg, S)
+    worst = row_rel_err(torch, lg.cpu(), lc)
+    for t in range(16):
+        pos = torch.full((B,), S + t, dtype=torch.int32)
+        l1, cc = tm.decode_step(cpu, cc, tokens[:, S + t], pos, cfg)
+        l2, cg = tm.decode_step(gpu, cg, tokens[:, S + t].cuda(), pos.cuda(), cfg)
+        worst = max(worst, row_rel_err(torch, l2.cpu(), l1))
+    say(f"[5] (e) prefill ({B} x {S}) and 16 decode steps: card == CPU, logits row relative "
+        f"{worst:.2e} (bound {ROW_TOL['float32']:g})")
+    if not worst <= ROW_TOL["float32"]:
+        fail(f"{cfg.name}: decode logits on the card differ from the CPU's")
+
+    cfg, dec = get_config("xlstm-125m"), SHAPES["decode_32k"]
+    torch.cuda.empty_cache()
+    params = tm.init_params(cfg, seed=11)
+    cache = tm.init_cache(params, cfg, dec.global_batch, dec.seq_len)
+    gen = torch.Generator("cuda").manual_seed(12)
+    tok = torch.randint(0, cfg.vocab_size, (dec.global_batch,), generator=gen, device="cuda")
+    pos = torch.zeros(dec.global_batch, dtype=torch.int32, device="cuda")
+    ms = []
+    for _ in range(1 + DECODE_STEPS):                       # one warm-up step
+        t0 = time.perf_counter()
+        logits, cache = tm.decode_step(params, cache, tok, pos, cfg)
+        tok, pos = logits.argmax(dim=-1), pos + 1
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    if not torch.isfinite(logits).all():
+        fail(f"{cfg.name}: decode logits are not finite")
+    n, busy = device_launches(torch, lambda: tm.decode_step(params, cache, tok, pos, cfg))
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    say(f"[5] (e) {cfg.name} decode at {dec.name} (batch {dec.global_batch}, full width, "
+        f"{cfg.n_layers} layers): {DECODE_STEPS} steps of median {steady:.2f} ms "
+        f"(synchronized; {', '.join(f'{x:.1f}' for x in ms[1:])}), {n} device launches and "
+        f"{busy:.2f} ms of device time a step  ({card})")
+
+
+# phase 6: examples/online_cluster.py's defaults
+ONLINE_ARRIVALS, ONLINE_LOAD, ONLINE_RETRAIN_S = 80, 1.25, 1800.0
+
+
+def phase_online(torch, card, agent):
+    """Phase 6: the online heap cluster of ``examples/online_cluster.py`` at
+    its defaults (poisson trace, 80 arrivals, load 1.25, window 8, c_max 4,
+    one pod of 8, hash router, concurrent mode), served by time sharing,
+    the greedy packer and phase 4's trained agent (on the card, then a CPU
+    copy of its parameters), then by the agent with periodic re-training
+    on the card and telemetry on."""
+    from repro_torch.core import EnvConfig, make_zoo
+    from repro_torch.core.agent import DQNAgent
+    from repro_torch.online import (
+        ClusterSimulator, GreedyPackerPolicy, OnlineRetrainer, RLDispatchPolicy, SimConfig,
+        Telemetry, TimeSharingPolicy, default_retrain_train_config, poisson_trace,
+    )
+
+    zoo = make_zoo()
+    env_cfg = EnvConfig(window=TRAIN_WINDOW, c_max=4)
+    trace = poisson_trace(zoo, n=ONLINE_ARRIVALS, load=ONLINE_LOAD, seed=0, capacity=1.0)
+    say(f"[6] trace 'poisson': {len(trace)} arrivals over {trace[-1].t / 3600:.2f} simulated "
+        f"hours (load {ONLINE_LOAD}, one pod of 8, 'hash' router, concurrent); RL is phase 4's "
+        f"agent ({TRAIN_EPISODES} episodes; the example trains 800 of its own)")
+
+    def cfg(tick=None):
+        return SimConfig(window=TRAIN_WINDOW, mode="concurrent", pods=(8,), router="hash",
+                         tick_interval_s=tick)
+
+    cpu_agent = DQNAgent(agent.params["w0"].shape[0], agent.params["wA"].shape[1],
+                         device="cpu", params={k: v.cpu() for k, v in agent.params.items()})
+    results, secs = {}, {}
+    for name, policy in (("time_sharing", TimeSharingPolicy()),
+                         ("greedy_packer", GreedyPackerPolicy()),
+                         ("rl", RLDispatchPolicy(agent, env_cfg)),
+                         ("rl (cpu)", RLDispatchPolicy(cpu_agent, env_cfg))):
+        t0 = time.perf_counter()
+        results[name] = ClusterSimulator(policy, cfg()).run(trace)
+        secs[name] = time.perf_counter() - t0
+
+    def records(res):
+        return [dataclasses.asdict(r) for r in res.jobs]
+
+    if (results["rl"].summary() != results["rl (cpu)"].summary()
+            or records(results["rl"]) != records(results["rl (cpu)"])):
+        fail("the RL policy's run with the agent on the card differs from the CPU's")
+
+    pol = RLDispatchPolicy(agent, env_cfg)
+    retrainer = OnlineRetrainer(policy=pol, train_cfg=default_retrain_train_config(240),
+                                interval_s=ONLINE_RETRAIN_S)
+    cycle_s = []
+
+    def on_tick(now, sim):
+        t0, before = time.perf_counter(), len(retrainer.history)
+        retrainer(now, sim)
+        if len(retrainer.history) > before:
+            cycle_s.append(time.perf_counter() - t0)
+
+    tel = Telemetry()
+    t0 = time.perf_counter()
+    results["rl+retrain"] = ClusterSimulator(pol, cfg(tick=retrainer.interval_s),
+                                             on_tick=on_tick, telemetry=tel).run(trace)
+    secs["rl+retrain"] = time.perf_counter() - t0
+
+    ts = results["time_sharing"].throughput
+    say(f"[6] {'policy':14s} {'throughput':>10s} {'vs_ts':>6s} {'makespan_h':>10s} "
+        f"{'mean_wait_m':>11s} {'p99_wait_m':>10s} {'slice_util':>10s} {'backfills':>9s} "
+        f"{'seconds':>8s}")
+    for name, r in results.items():
+        say(f"[6] {name:14s} {r.throughput:10.3f} {r.throughput / ts:6.3f} "
+            f"{r.makespan / 3600:10.2f} {r.mean_wait / 60:11.1f} {r.p99_wait / 60:10.1f} "
+            f"{r.slice_utilization:10.3f} {r.backfills:9d} {secs[name]:8.1f}")
+    say(f"[6] rl on the card == rl on the CPU: summary and {len(results['rl'].jobs)} job "
+        f"records key for key  ({card})")
+    say(f"[6] re-training cycles: {len(retrainer.history)}")
+    for h, sec in zip(retrainer.history, cycle_s):
+        say(f"[6]   t={h['t_s'] / 60:6.0f}min repo={h['repository_jobs']:3d} jobs "
+            f"{h['class_counts']} train_tp={h['train_eval_throughput']:.3f} "
+            f"({h['episodes']} episodes on the card in {sec:.1f} s)")
+    if not results["rl"].throughput >= 0.99 * ts:
+        fail(f"rl throughput {results['rl'].throughput:.4f} below 0.99 x time sharing's "
+             f"{ts:.4f}")
+    if not retrainer.history or pol.agent is agent:
+        fail("the retrainer never fired or never hot-swapped the agent")
+    res, m = results["rl+retrain"], {d["name"]: d for d in tel.metrics.to_dicts()}
+    summ = res.summary()
+    agree = (m["jobs_arrived"]["value"] == summ["jobs"]
+             and m["windows_formed"]["value"] == summ["dispatches"]
+             and m["groups_placed"]["value"] == summ["groups"]
+             and m["backfills"]["value"] == summ["backfills"]
+             and m["wait_s"]["count"] == summ["jobs"]
+             and math.isclose(m["wait_s"]["sum"], sum(r.wait for r in res.jobs), rel_tol=1e-9)
+             and math.isclose(m["busy_unit_s"]["value"], sum(res.slice_busy_s), rel_tol=1e-9))
+    if not agree:
+        fail("the telemetry registry's aggregates differ from summary()")
+    say(f"[6] telemetry: {len(tel.recorder)} lifecycle events; the registry's counters equal "
+        f"summary() (jobs {summ['jobs']}, windows {summ['dispatches']}, groups "
+        f"{summ['groups']}, backfills {summ['backfills']}), wait and busy sums within 1e-9")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -878,13 +1180,16 @@ def main() -> None:
     phase_schedule(card)
     pair = phase_pair(torch, card)
     phase_reference(torch)
-    train = phase_train(torch, card)
+    train, agent = phase_train(torch, card)
     phase_lm_reference(torch)
     phase_lm_train(torch, card)
     lm_pair = phase_lm_pair(torch, card)
-    # launches on the main paths: the co-run pair, training the co-scheduler
-    # and the train pair (no path of the package calls rmsnorm)
-    launches = {name: pair[name] + train[name] + lm_pair[name] for name in pair}
+    step4 = phase_step4_pair(torch, card)
+    phase_xlstm_reference(torch, card)
+    phase_online(torch, card, agent)
+    # launches on the main paths: the co-run pair, training the co-scheduler,
+    # the train pair and step 4's pair (no path of the package calls rmsnorm)
+    launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

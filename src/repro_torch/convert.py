@@ -1,8 +1,9 @@
 """Weights and agent state carried across from the JAX package.
 
 Both packages keep parameters as nested dicts with the same keys, and the
-dense model's layer parameters stacked on a leading ``L`` axis (the
-reference's vmapped init), so conversion is a leaf-by-leaf copy; the same
+dense model's layers (the xLSTM model's ``pairs/mlstm/...`` and
+``pairs/slstm/...``) stacked on a leading axis (the reference's vmapped
+init), so conversion is a leaf-by-leaf copy; the same
 holds for the model's AdamW state.  A DQN
 agent carries its online and target parameters and its Adam state
 (``m``, ``v``, ``t``), so training continues across the packages.  Inputs
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.agent import DQNAgent, DQNConfig
+from repro_torch.models.model import require_ported
 
 _TORCH_DTYPE = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -32,8 +34,7 @@ def _leaf(x, device) -> torch.Tensor:
 
 def model_params_from_jax(np_tree: dict, cfg, device="cuda") -> dict:
     """The reference model's params (numpy leaves) as the port's params."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet")
+    require_ported(cfg)
     return {k: model_params_from_jax(v, cfg, device) if isinstance(v, dict) else _leaf(v, device)
             for k, v in np_tree.items()}
 

@@ -1,6 +1,7 @@
 """Shared layer primitives: init, RMSNorm, rotary embeddings, numerics policy.
 
-Port of the parts of ``repro/models/layers.py`` the dense decoder uses.
+Port of the parts of ``repro/models/layers.py`` the dense decoder and the
+xLSTM blocks use.
 Random weights come from an explicit ``torch.Generator``; they do not
 reproduce the reference's ``jax.random`` draws (weights are carried across
 with :mod:`repro_torch.convert` where the two must agree).
@@ -93,3 +94,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv over seq. x: (B, S, C); w: (K, C).
+
+    The taps are unrolled, as in the reference (K is tiny, e.g. 4)."""
+    k, S = w.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + pad[:, i:i + S, :] * w[i]
+    if b is not None:
+        out = out + b
+    return out
+
+
+def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor | None):
+    """One decode step of causal depthwise conv.
+
+    x_t: (B, C); conv_state: (B, K-1, C) past inputs.  Returns
+    ``(y_t, new_state)``; with K = 1 the state is returned as it came."""
+    k = w.shape[0]
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    if b is not None:
+        y = y + b
+    return y, window[:, 1:, :] if k > 1 else conv_state

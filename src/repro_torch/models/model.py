@@ -1,4 +1,4 @@
-"""Model API of the port (dense decoder family).
+"""Model API of the port (dense decoder and xLSTM families).
 
     init_params(cfg, seed, device)            -> params dict
     loss_fn(params, batch, cfg)               -> (loss, metrics)      [train]
@@ -7,8 +7,8 @@
     init_cache(params, cfg, batch, max_len)   -> cache dict
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
 
-Port of the dense family of ``repro/models/model.py``; the MoE, hybrid,
-xLSTM and encoder-decoder families are not ported yet.
+Port of the dense and ``ssm`` (xLSTM) families of ``repro/models/model.py``;
+the MoE, hybrid, vlm and encoder-decoder families are not ported yet.
 :func:`count_params_analytic` covers every family, because the job
 profiles of the whole zoo need it.
 """
@@ -23,18 +23,24 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_init, ones_init, pdtype, rmsnorm
 
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm")
+
+
+def require_ported(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet")
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``."""
-    _require_dense(cfg)
+    require_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = pdtype(cfg)
     p: dict = {"emb": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, device)}
-    p["layers"] = tfm.init_dense_stack(gen, cfg, device)
+    if cfg.family == "ssm":
+        p["pairs"] = tfm.init_xlstm_stack(gen, cfg, device)
+    else:
+        p["layers"] = tfm.init_dense_stack(gen, cfg, device)
     p["final_norm"] = ones_init((cfg.d_model,), torch.float32, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, (cfg.d_model, cfg.vocab_size), dt, device)
@@ -56,9 +62,11 @@ def _logits(p, x, cfg):
 # ===========================================================================
 
 def _train_stack(params, tokens, cfg):
-    _require_dense(cfg)
+    require_ported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)
+    if cfg.family == "ssm":
+        return tfm.xlstm_stack_train(params["pairs"], x, cfg, positions)
     return tfm.dense_stack_train(params["layers"], x, cfg, positions)
 
 
@@ -119,7 +127,9 @@ def loss_fn(params, batch, cfg):
 # ===========================================================================
 
 def init_cache(params, cfg, batch: int, max_len: int) -> dict:
-    _require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        return tfm.init_xlstm_cache(cfg, batch, max_len, device=params["emb"].device)
     return tfm.init_dense_cache(cfg, batch, max_len, device=params["emb"].device)
 
 
@@ -129,7 +139,10 @@ def decode_step(params, cache, token, pos, cfg):
 
     The cache is updated in place and returned."""
     x_t = _embed(params, token[:, None], cfg)[:, 0]        # (B, M)
-    x_t, cache = tfm.dense_stack_decode(params["layers"], x_t, cache, pos, cfg)
+    if cfg.family == "ssm":
+        x_t, cache = tfm.xlstm_stack_decode(params["pairs"], x_t, cache, pos, cfg)
+    else:
+        x_t, cache = tfm.dense_stack_decode(params["layers"], x_t, cache, pos, cfg)
     return _logits(params, x_t, cfg), cache
 
 
@@ -138,11 +151,17 @@ def prefill(params, tokens, cfg, max_len: int):
     """Full-sequence prefill -> (last-position logits, cache).
 
     As in the reference, the cache is ``S`` long whatever ``max_len`` says;
-    its K/V come from each layer's attention call (roped keys)."""
-    _require_dense(cfg)
+    its K/V come from each layer's attention call (roped keys).  For the
+    ``ssm`` family the reference returns the last logits of the parallel
+    forward and a *fresh* zero cache (its documented limitation: serving
+    code rebuilds the recurrent state by a decode warm-up); so does this."""
+    require_ported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)
+    if cfg.family == "ssm":
+        x = tfm.xlstm_stack_apply(params["pairs"], x, cfg, positions)
+        return _logits(params, x[:, -1, :], cfg), init_cache(params, cfg, B, S)
     cache = tfm.init_dense_cache(cfg, B, S, device=tokens.device)
     x = tfm.dense_stack_apply(params["layers"], x, cfg, positions, kv_out=cache)
     return _logits(params, x[:, -1, :], cfg), cache

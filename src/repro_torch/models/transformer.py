@@ -1,10 +1,13 @@
-"""Dense decoder stack (port of the dense part of ``repro/models/transformer.py``).
+"""Decoder stacks: dense and xLSTM (port of those parts of
+``repro/models/transformer.py``).
 
-Layer parameters are stacked on a leading ``L`` axis, as the reference's
-vmapped init leaves them, and the stack is a Python loop over layers (the
-reference's ``lax.scan``).  The KV cache is one real (L, B, Smax, Hkv, D)
-tensor per K and V; each layer reads and writes its own slice in place.
-The training form, :func:`dense_stack_train`, checkpoints each layer when
+Layer parameters are stacked on a leading ``L`` axis (``n_layers // 2``
+for the xLSTM pairs), as the reference's vmapped init leaves them, and a
+stack is a Python loop over layers (the reference's ``lax.scan``).  The KV
+cache is one real (L, B, Smax, Hkv, D) tensor per K and V; each layer reads
+and writes its own slice in place.  The xLSTM cache holds each pair's
+recurrent state the same way.  The training forms, :func:`dense_stack_train`
+and :func:`xlstm_stack_train`, checkpoint each layer (each pair) when
 ``cfg.remat == "block"`` (the reference's ``_maybe_remat``).
 """
 from __future__ import annotations
@@ -15,6 +18,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import attn_apply, attn_decode, init_attn, init_kv_cache
 from repro_torch.models.layers import ones_init, rmsnorm
 from repro_torch.models.mlp import init_swiglu, swiglu_apply
+from repro_torch.models.xlstm import (
+    init_mlstm, init_mlstm_state, init_slstm, init_slstm_state, mlstm_apply, mlstm_decode,
+    slstm_apply, slstm_decode,
+)
 
 
 def init_decoder_layer(generator, cfg, layers: int | None = None, device="cuda") -> dict:
@@ -82,6 +89,17 @@ def _unstack(stacked: dict, n: int) -> list[dict]:
     return out
 
 
+def _train_loop(block, stacked, n: int, x, cfg):
+    """``block(p, x)`` over the ``n`` stacked blocks with autograd, each one
+    a checkpoint when ``cfg.remat == "block"``; returns ``(x, aux)``."""
+    for p in _unstack(stacked, n):
+        if cfg.remat == "block":
+            x = checkpoint(block, p, x, use_reentrant=False)
+        else:
+            x = block(p, x)
+    return x, zero_aux(x.device)
+
+
 def dense_stack_train(stacked, x, cfg, positions):
     """The stack over the full sequence with autograd, for training; returns
     ``(x, aux)`` as the reference's ``dense_stack_apply`` does.  With
@@ -90,12 +108,7 @@ def dense_stack_train(stacked, x, cfg, positions):
     def layer(p, x):
         return decoder_layer_apply(p, x, cfg, positions)[0]
 
-    for p in _unstack(stacked, cfg.n_layers):
-        if cfg.remat == "block":
-            x = checkpoint(layer, p, x, use_reentrant=False)
-        else:
-            x = layer(p, x)
-    return x, zero_aux(x.device)
+    return _train_loop(layer, stacked, cfg.n_layers, x, cfg)
 
 
 def dense_stack_decode(stacked, x_t, cache, pos, cfg):
@@ -109,3 +122,61 @@ def init_dense_cache(cfg, batch: int, max_len: int, device="cuda") -> dict:
     """A real zero cache (L, B, Smax, Hkv, D), not a broadcast view: decode
     writes into it in place."""
     return init_kv_cache(cfg, batch, max_len, layers=cfg.n_layers, device=device)
+
+
+# ===========================================================================
+# xLSTM pair stack (pattern "ms": one mLSTM + one sLSTM per pair)
+# ===========================================================================
+
+def _xlstm_pairs(cfg) -> int:
+    assert cfg.xlstm.pattern == "ms"
+    return cfg.n_layers // 2
+
+
+def init_xlstm_pair(generator, cfg, pairs: int | None = None, device="cuda") -> dict:
+    return {"mlstm": init_mlstm(generator, cfg, pairs, device),
+            "slstm": init_slstm(generator, cfg, pairs, device)}
+
+
+def init_xlstm_stack(generator, cfg, device="cuda") -> dict:
+    return init_xlstm_pair(generator, cfg, _xlstm_pairs(cfg), device)
+
+
+def xlstm_pair_apply(p, x, cfg):
+    return slstm_apply(p["slstm"], mlstm_apply(p["mlstm"], x, cfg), cfg)
+
+
+def xlstm_stack_apply(stacked, x, cfg, positions=None):
+    """Every pair over the full sequence (no recurrent state comes out)."""
+    for i in range(_xlstm_pairs(cfg)):
+        x = xlstm_pair_apply(layer_params(stacked, i), x, cfg)
+    return x
+
+
+def xlstm_stack_train(stacked, x, cfg, positions=None):
+    """:func:`xlstm_stack_apply` with autograd, for training; returns
+    ``(x, aux)``.  With ``cfg.remat == "block"`` each *pair* is one
+    checkpoint, as the reference's ``_maybe_remat(body)`` makes its scan
+    body, so the backward runs the pair's sLSTM loop again."""
+    return _train_loop(lambda p, x: xlstm_pair_apply(p, x, cfg), stacked, _xlstm_pairs(cfg),
+                       x, cfg)
+
+
+def init_xlstm_cache(cfg, batch: int, max_len: int = 0, device="cuda") -> dict:
+    """Each pair's zero recurrent state, stacked on the pair axis as real
+    tensors (the reference broadcasts one state; decode writes here)."""
+    n = _xlstm_pairs(cfg)
+    return {"mlstm": init_mlstm_state(cfg, batch, n, device),
+            "slstm": init_slstm_state(cfg, batch, n, device)}
+
+
+def xlstm_stack_decode(stacked, x_t, cache, pos, cfg):
+    """One token through every pair; each pair's new state is copied into
+    its slice of ``cache`` in place."""
+    for i in range(_xlstm_pairs(cfg)):
+        p = layer_params(stacked, i)
+        for name, fn in (("mlstm", mlstm_decode), ("slstm", slstm_decode)):
+            x_t, new = fn(p[name], x_t, layer_params(cache[name], i), cfg)
+            for k, v in new.items():
+                cache[name][k][i].copy_(v)
+    return x_t, cache

@@ -35,9 +35,14 @@ SLICE_2 = {"repro_torch.core.baselines", "repro_torch.core.metrics",
            "repro_torch.core.perfmodel_vec", "repro_torch.core.replay",
            "repro_torch.core.train", "repro_torch.kernels.rmsnorm",
            "repro_torch.kernels.rmsnorm.ops"}
-# the LM training slice's modules; 53 modules in all
+# the LM training slice's modules
 SLICE_5 = {"repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
            "repro_torch.optim.adamw", "repro_torch.runtime.lm_train"}
+# the xLSTM family and the online heap path; 61 modules in all
+SLICE_6 = {"repro_torch.models.xlstm", "repro_torch.online", "repro_torch.online.policies",
+           "repro_torch.online.retrain", "repro_torch.online.router",
+           "repro_torch.online.simulator", "repro_torch.online.telemetry",
+           "repro_torch.online.traces"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -46,4 +51,4 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 53 and SLICE_2 | SLICE_5 <= names, out.stdout
+    assert len(names) >= 61 and SLICE_2 | SLICE_5 | SLICE_6 <= names, out.stdout

@@ -12,7 +12,11 @@ steps that fill the replay ring past one batch, 5 engine steps run under
 tokens, block remat) after two warm-up steps, its kernels filed as flash
 forward, attention backward, chunked CE, AdamW, cuBLAS and other (below),
 and, off the path, the attention backward alone at one layer's shape
-beside ``scaled_dot_product_attention``'s backward.  Then the pair of
+beside ``scaled_dot_product_attention``'s backward.  Then one step of
+``chip_smoke.py`` (d)'s xLSTM train tenant (xlstm-125m, 32 x 1024 tokens),
+its kernels filed as mLSTM chunks, sLSTM loop, chunked CE, AdamW, cuBLAS
+and other (some 5 x 10^5 kernels: its trace takes minutes to read).  Then
+the pair of
 ``chip_smoke.py`` (prefill 1 x 8192 tokens, decode batch 4 against a
 32768-slot cache, full width, bf16): one prefill step alone, one decode
 step alone, and one co-run macro-step of ``FusedCoRunner`` (both tenants on
@@ -45,7 +49,7 @@ TRAIN_STEPS = 5
 # ``torch.profiler.record_function`` (the CE's forward ops also mark their
 # backward nodes, by autograd sequence number), then kernel names
 REGIONS = {"flash_attention_bwd": "attention backward", "chunked_ce": "chunked CE",
-           "adamw": "AdamW"}
+           "adamw": "AdamW", "mlstm_chunks": "mLSTM chunks", "slstm_loop": "sLSTM loop"}
 CLASSES = (("flash_attention", ("flash_fwd",)),
            ("decode_attention", ("decode_split", "decode_combine")),
            ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_regs_kernel")),
@@ -106,19 +110,32 @@ def train_step_classes(events: list, kernels: list, fwd_tid) -> list[str]:
     launches = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    spans: dict = {}
+    # the classes of the spans around each launch, by one sweep over the
+    # spans' ends and the launch times of each thread (an xLSTM step has
+    # some 10^5 backward-node spans and 5 x 10^5 launches); a span holds
+    # the launches at its start and at its end
+    points: dict = {}
     for tid, a, b, cls in region_spans(events, fwd_tid):
-        spans.setdefault(tid, []).append((a, b, cls))
+        points.setdefault(tid, []).extend(((a, 0, cls), (b, 2, cls)))
+    hits: dict = {}
+    for i, k in enumerate(kernels):
+        tid, ts = launches.get(k.get("args", {}).get("correlation"), (None, None))
+        if tid in points:
+            points[tid].append((ts, 1, i))
+    for pts in points.values():
+        open_spans = dict.fromkeys(REGIONS.values(), 0)
+        for _, kind, what in sorted(pts, key=lambda p: (p[0], p[1])):
+            if kind == 1:
+                hits[what] = next((c for c, n in open_spans.items() if n), None)
+            else:
+                open_spans[what] += 1 if kind == 0 else -1
     out = []
-    for k in kernels:
+    for i, k in enumerate(kernels):
         by_name = kernel_class(k["name"])
         if by_name == "flash_attention":
             out.append("flash forward")
-            continue
-        tid, ts = launches.get(k.get("args", {}).get("correlation"), (None, None))
-        hit = {cls for a, b, cls in spans.get(tid, ()) if a <= ts <= b}
-        cls = next((c for c in REGIONS.values() if c in hit), None)
-        out.append(cls or ("cuBLAS" if by_name == "matmul (cuBLAS)" else "other"))
+        else:
+            out.append(hits.get(i) or ("cuBLAS" if by_name == "matmul (cuBLAS)" else "other"))
     return out
 
 
@@ -231,6 +248,25 @@ def lm_train_step(torch, out_dir: Path) -> dict:
     return rec
 
 
+def xlstm_train_step(torch, out_dir: Path) -> dict:
+    """One step of ``chip_smoke.py`` (d)'s xLSTM train tenant (xlstm-125m at
+    full width, 32 x 1024 tokens, block remat on each pair) under the
+    profiler, after one warm-up step: its kernels filed as mLSTM chunks
+    (the chunked recurrence: forward, recompute, backward), sLSTM loop
+    (the per-token recurrence), chunked CE, AdamW, cuBLAS and other."""
+    import threading
+
+    tenant = chip_smoke.xlstm_tenant()
+    holder = [tenant.step_fn(tenant.state)]
+
+    def one():
+        holder[0] = tenant.step_fn(holder[0])
+
+    tid = threading.get_native_id()
+    return profile(torch, "xlstm_train_step", one, out_dir, keep=False,
+                   classes=lambda events, kernels: train_step_classes(events, kernels, tid))
+
+
 def attention_backward_alone(torch) -> dict:
     """Off the path: ``flash_attention_bwd`` at one layer's shape of the
     train step (1 x 4096 tokens, 32/8 heads of 128, causal, bf16) beside
@@ -291,6 +327,8 @@ def main() -> None:
 
     recs["lm_train_step"] = lm_train_step(torch, out_dir)
     recs["attention_backward_alone"] = attention_backward_alone(torch)
+    torch.cuda.empty_cache()
+    recs["xlstm_train_step"] = xlstm_train_step(torch, out_dir)
     torch.cuda.empty_cache()
 
     _, tenants = chip_smoke.make_pair(torch)
