@@ -69,6 +69,21 @@ Phases, each of which stops the run with a non-zero exit on failure:
    the CPU's key for key, RL reaches 0.99 x time sharing's throughput, the
    telemetry registry agrees with ``summary()`` and the retrainer fired
    and hot-swapped the agent.
+7. The vectorized simulator (``repro_torch/online/vecsim.py``) on the card
+   at phase 6's settings.  (a) Time sharing on phase 6's trace must equal
+   phase 6's heap run (decisions exactly, times within f32); a sweep of 64
+   poisson traces (seeds 0-63, capacity 128) must equal single-trace runs
+   on 4 of its lanes; traces/s of the sweep and of the heap.  (b) Phase 4's
+   agent: the engine's run must equal phase 6's heap RL run, its 64-trace
+   sweep its single runs, and a population of 4 agents (phase 4's and three
+   perturbed copies) in one ``sweep(param_sets=...)`` each agent's own
+   sweep bit for bit.  (c) The (8, 8, 4, 4) fleet under the hash router,
+   time sharing and RL, must equal the heap fleet.  (d) The rollout
+   collector at eps 0.25 on 8 traces with the same draws on the card and
+   on the CPU: actions, masks and valid flags equal, buckets within 1e-5;
+   then phase 6's trace under ``OnlineRetrainer(reward="queueing")`` with
+   ``default_retrain_online_config()``, warm-started from phase 4's agent,
+   every 30 simulated minutes: it must fire and hot-swap.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1169,6 +1184,220 @@ def phase_online(torch, card, agent):
     say(f"[6] telemetry: {len(tel.recorder)} lifecycle events; the registry's counters equal "
         f"summary() (jobs {summ['jobs']}, windows {summ['dispatches']}, groups "
         f"{summ['groups']}, backfills {summ['backfills']}), wait and busy sums within 1e-9")
+    return trace, results
+
+
+# phase 7: the vectorized simulator (online/vecsim.py) on the card, at phase 6's
+# settings; its sweep is the trace family of benchmarks/online_sim.py
+SWEEP_TRACES, SWEEP_CAPACITY = 64, 128
+FLEET_PODS = (8, 8, 4, 4)
+
+
+def close(a: float, b: float) -> bool:
+    """f32 lanes against the heap's f64 clock (tests/strategies.py's bound)."""
+    return abs(a - b) <= max(0.05, 1e-4 * max(abs(a), abs(b)))
+
+
+def check_parity(heap, vec, what: str) -> None:
+    """The engine's decisions equal the heap's; times to f32 resolution."""
+    key = lambda r: (r.arrival, r.name)  # noqa: E731
+    if len(heap.jobs) != len(vec.jobs):
+        fail(f"{what}: {len(vec.jobs)} records against the heap's {len(heap.jobs)}")
+    for a, b in zip(sorted(heap.jobs, key=key), sorted(vec.jobs, key=key)):
+        if ((a.name, a.units, a.partition, a.group_size, a.backfilled, a.pod)
+                != (b.name, b.units, b.partition, b.group_size, b.backfilled, b.pod)
+                or not close(a.dispatch, b.dispatch) or not close(a.finish, b.finish)):
+            fail(f"{what}: job {a.name} at {a.arrival:.1f} s differs from the heap's: "
+                 f"{dataclasses.asdict(b)} against {dataclasses.asdict(a)}")
+    if (heap.dispatches, heap.backfills, heap.refits) != (vec.dispatches, vec.backfills,
+                                                          vec.refits):
+        fail(f"{what}: windows / backfills / refits {vec.dispatches} / {vec.backfills} / "
+             f"{vec.refits} against the heap's {heap.dispatches} / {heap.backfills} / "
+             f"{heap.refits}")
+    if [(s.slices, s.partition, s.backfilled, s.pod) for s in heap.timeline] != \
+            [(s.slices, s.partition, s.backfilled, s.pod) for s in vec.timeline]:
+        fail(f"{what}: the timeline's slice ranges differ from the heap's")
+
+
+def check_rows(summ, rows: dict, what: str) -> None:
+    """Sweep lanes against single-trace runs (``rows``: lane -> SimResult)."""
+    for i, res in rows.items():
+        s = res.summary()
+        for field, key in (("makespan", "makespan_s"), ("mean_wait", "mean_wait_s"),
+                           ("p99_wait", "p99_wait_s"), ("throughput", "throughput")):
+            if not close(float(getattr(summ, field)[i]), s[key]):
+                fail(f"{what}: lane {i} {field} {float(getattr(summ, field)[i])} against the "
+                     f"single run's {s[key]}")
+        if (int(summ.dispatches[i]), int(summ.backfills[i])) != (s["dispatches"], res.backfills):
+            fail(f"{what}: lane {i}'s windows / backfills differ from the single run's")
+
+
+def timed(torch, fn):
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
+    """Phase 7: the vectorized cluster simulator on the card at phase 6's
+    settings — time sharing and phase 4's agent on phase 6's trace (equal
+    to the heap runs of phase 6), sweeps of 64 poisson traces, a population
+    of 4 agents, the (8, 8, 4, 4) hash-routed fleet, the rollout collector
+    card against CPU, and the re-trainer on the queueing reward.  ``dev``
+    is the engines' device (the card; a dry run of the script's logic may
+    pass the CPU)."""
+    from repro_torch.core import EnvConfig, make_zoo
+    from repro_torch.core.agent import DQNAgent
+    from repro_torch.online import (
+        ClusterSimulator, OnlineRetrainer, RLDispatchPolicy, SimConfig, TimeSharingPolicy,
+        VectorizedClusterSimulator, VectorizedFleetSimulator, default_retrain_online_config,
+        make_rollout_collector, poisson_trace,
+    )
+    from repro_torch.online import vecsim as tv
+
+    t_phase = time.perf_counter()
+    zoo = make_zoo()
+    env_cfg = EnvConfig(window=TRAIN_WINDOW, c_max=4)
+    traces = [poisson_trace(zoo, n=ONLINE_ARRIVALS, load=ONLINE_LOAD, seed=s, capacity=1.0)
+              for s in range(SWEEP_TRACES)]
+    if [a.t for a in traces[0]] != [a.t for a in trace]:
+        fail("the sweep's trace 0 is not phase 6's trace")
+    probe = (0, SWEEP_TRACES // 3, 2 * SWEEP_TRACES // 3, SWEEP_TRACES - 1)
+    say(f"[7] {SWEEP_TRACES} poisson traces (seeds 0-{SWEEP_TRACES - 1}, {ONLINE_ARRIVALS} "
+        f"arrivals, load {ONLINE_LOAD}), window {TRAIN_WINDOW}, capacity {SWEEP_CAPACITY}; "
+        f"lanes {probe} also run alone")
+
+    # (a) time sharing
+    if VectorizedClusterSimulator(TimeSharingPolicy()).device.type != "cuda":
+        fail("the vectorized engine does not default to the card")
+    ts = VectorizedClusterSimulator(TimeSharingPolicy(), window=TRAIN_WINDOW,
+                                    capacity=SWEEP_CAPACITY, device=dev)
+    check_parity(heap["time_sharing"], ts.run(trace), "time sharing, card engine")
+    summ, sec = timed(torch, lambda: ts.sweep(traces))
+    st = ts._runf.stats
+    check_rows(summ, {i: ts.run(traces[i]) for i in probe}, "time-sharing sweep")
+    n_heap = min(8, SWEEP_TRACES)
+    _, heap_sec = timed(torch, lambda: [ClusterSimulator(TimeSharingPolicy(), window=TRAIN_WINDOW)
+                                        .run(t) for t in traces[:n_heap]])
+    say(f"[7] (a) time sharing: the card engine's run of phase 6's trace equals the heap's "
+        f"(decisions exact, times within f32); sweep of {SWEEP_TRACES} traces in {sec:.3f} s "
+        f"= {SWEEP_TRACES / sec:.1f} traces/s ({st['iterations']} iterations, "
+        f"{1e3 * sec / st['iterations']:.3f} ms each); heap {n_heap / heap_sec:.1f} traces/s on "
+        f"this host; lanes {probe} equal their single runs")
+
+    # (b) RL: phase 4's agent
+    rl = VectorizedClusterSimulator(RLDispatchPolicy(agent, env_cfg), window=TRAIN_WINDOW,
+                                    capacity=SWEEP_CAPACITY, device=dev)
+    res_rl, sec1 = timed(torch, lambda: rl.run(trace))
+    check_parity(heap["rl"], res_rl, "RL, card engine")
+    summ_rl, sec = timed(torch, lambda: rl.sweep(traces))
+    st = rl._runf.stats
+    check_rows(summ_rl, {i: rl.run(traces[i]) for i in probe}, "RL sweep")
+    n_heap = min(4, SWEEP_TRACES)
+    _, heap_sec = timed(torch, lambda: [ClusterSimulator(RLDispatchPolicy(agent, env_cfg),
+                                                         window=TRAIN_WINDOW).run(t)
+                                        for t in traces[:n_heap]])
+    say(f"[7] (b) RL: the card engine's run of phase 6's trace ({sec1:.2f} s) equals the heap "
+        f"RL run of phase 6; sweep of {SWEEP_TRACES} traces in {sec:.3f} s = "
+        f"{SWEEP_TRACES / sec:.2f} traces/s ({st['iterations']} service iterations, "
+        f"{st['formations']} formations); heap RL {n_heap / heap_sec:.2f} traces/s on this host; "
+        f"mean throughput {float(summ_rl.throughput.mean()):.4f} against time sharing's "
+        f"{float(summ.throughput.mean()):.4f}")
+    gen = torch.Generator().manual_seed(7)
+    pop = [agent.params] + [
+        {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(v.device)
+         for k, v in agent.params.items()} for _ in range(3)]
+    out, sec = timed(torch, lambda: rl.sweep(traces, param_sets=pop))
+    st = rl._runf.stats
+    for p_i, params in enumerate(pop):
+        one = VectorizedClusterSimulator(
+            RLDispatchPolicy(DQNAgent(params["w0"].shape[0], params["wA"].shape[1],
+                                      params=params, device=dev), env_cfg),
+            window=TRAIN_WINDOW, capacity=SWEEP_CAPACITY, device=dev).sweep(traces)
+        for name, a, b in zip(out._fields, out, one):
+            if not torch.equal(a[p_i], b):
+                fail(f"param_sets: agent {p_i}'s {name} differs from its own sweep")
+    say(f"[7] (b) param_sets: 4 agents x {SWEEP_TRACES} traces in one call, {sec:.3f} s "
+        f"({st['formations']} formations); each agent's rows equal its own sweep bit for bit; "
+        f"mean p99 wait (min) by agent: "
+        f"{', '.join(f'{x / 60:.1f}' for x in out.p99_wait.mean(dim=1).tolist())}")
+
+    # (c) the hash-routed fleet
+    fcfg = SimConfig(window=TRAIN_WINDOW, pods=FLEET_PODS, router="hash")
+    for name, make in (("time sharing", TimeSharingPolicy),
+                       ("RL", lambda: RLDispatchPolicy(agent, env_cfg))):
+        h = ClusterSimulator(make(), fcfg).run(trace)
+        v, sec = timed(torch, lambda: VectorizedFleetSimulator(
+            make(), fcfg, capacity=SWEEP_CAPACITY, device=dev).run(trace))
+        check_parity(h, v, f"fleet {FLEET_PODS}, {name}")
+        say(f"[7] (c) fleet {FLEET_PODS} 'hash', {name}: equals the heap fleet "
+            f"({v.dispatches} windows, {v.backfills} backfills, {v.refits} refits, "
+            f"throughput {v.throughput:.3f}; {sec:.2f} s)")
+
+    # (d) training on the queueing reward: the collector card against CPU
+    B = min(8, SWEEP_TRACES)
+    names, jobs = {}, []
+    compiled = [tv.compile_trace(t, SWEEP_CAPACITY, names, jobs, device="cpu")[0]
+                for t in traces[:B]]
+    n_act = env_cfg.window + len(tv.enumerate_partitions(env_cfg.c_max))
+    g = torch.Generator().manual_seed(11)
+    ue = torch.rand((B, SWEEP_CAPACITY, 2 * env_cfg.window), generator=g)
+    us = torch.rand((B, SWEEP_CAPACITY, 2 * env_cfg.window, n_act), generator=g)
+    rolls = []
+    for on in (dev, "cpu"):
+        collect = make_rollout_collector(env_cfg, window=TRAIN_WINDOW, capacity=SWEEP_CAPACITY,
+                                         device=on)
+        params = {k: v.to(on) for k, v in agent.params.items()}
+        out, sec = timed(torch, lambda: collect(
+            tv.stack_traces(compiled, on), tv.build_rl_job_table(jobs, on), params, 0.25,
+            torch.full((B,), 8, device=on), u_explore=ue, u_scores=us))
+        rolls.append(out)
+        say(f"[7] (d) rollout collector on {on}: {B} traces at eps 0.25 in {sec:.2f} s")
+    (sc, rc), (sp, rp) = rolls
+    for f in ("valid", "act", "mask"):
+        if not torch.equal(getattr(rc, f).cpu(), getattr(rp, f)):
+            fail(f"the collector's {f} on the card differs from the CPU's")
+    err = max(float(((getattr(rc, f).cpu() - getattr(rp, f)).abs()
+                     / getattr(rp, f).abs().clamp_min(1.0)).max()) for f in ("w_wait", "w_turn"))
+    if err > 1e-5:
+        fail(f"the collector's buckets on the card differ from the CPU's by {err:.2e}")
+    say(f"[7] (d) card == CPU: {int(rp.valid.sum())} decisions' actions, masks and valid flags "
+        f"equal; wait / turnaround buckets within {err:.2e} relative (bound 1e-5)")
+
+    # (d) the re-trainer on the queueing reward, phase 6's trace
+    warm = DQNAgent(agent.params["w0"].shape[0], agent.params["wA"].shape[1],
+                    params={k: v.clone() for k, v in agent.params.items()}, device=dev)
+    pol = RLDispatchPolicy(warm, env_cfg)
+    retrainer = OnlineRetrainer(policy=pol, reward="queueing",
+                                online_cfg=default_retrain_online_config(),
+                                interval_s=ONLINE_RETRAIN_S)
+    cycle_s = []
+
+    def on_tick(now, sim):
+        t0, before = time.perf_counter(), len(retrainer.history)
+        retrainer(now, sim)
+        if len(retrainer.history) > before:
+            cycle_s.append(time.perf_counter() - t0)
+
+    res, sec = timed(torch, lambda: ClusterSimulator(
+        pol, SimConfig(window=TRAIN_WINDOW, tick_interval_s=ONLINE_RETRAIN_S),
+        on_tick=on_tick).run(trace))
+    if not retrainer.history or pol.agent is warm:
+        fail("the queueing-reward retrainer never fired or never hot-swapped the agent")
+    for h, c in zip(retrainer.history, cycle_s):
+        kept = "the incumbent" if h["selected"] == "warm_start" else "the refresh"
+        say(f"[7] (d)   t={h['t_s'] / 60:6.0f}min repo={h['repository_jobs']:3d} jobs: "
+            f"{h['rounds']} rounds in {c:.1f} s, eval p99 wait "
+            f"{h['train_eval_p99_wait'] / 60:.1f} min, guard kept {kept}")
+    ts_tp = heap["time_sharing"].throughput
+    say(f"[7] (d) rl + queueing retrain: throughput {res.throughput:.3f} = "
+        f"{res.throughput / ts_tp:.3f} x time sharing (rl alone "
+        f"{heap['rl'].throughput / ts_tp:.3f}), mean wait {res.mean_wait / 60:.1f} min, "
+        f"p99 {res.p99_wait / 60:.1f} min; {len(retrainer.history)} cycles, run {sec:.1f} s")
+    say(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s  ({card})")
 
 
 def main() -> None:
@@ -1186,7 +1415,8 @@ def main() -> None:
     lm_pair = phase_lm_pair(torch, card)
     step4 = phase_step4_pair(torch, card)
     phase_xlstm_reference(torch, card)
-    phase_online(torch, card, agent)
+    trace, heap = phase_online(torch, card, agent)
+    phase_vecsim(torch, card, agent, trace, heap)
     # launches on the main paths: the co-run pair, training the co-scheduler,
     # the train pair and step 4's pair (no path of the package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] for name in pair}

@@ -336,51 +336,59 @@ def group_metrics(table: PartitionTable, qa: QueueArrays, group_idx: torch.Tenso
 
 
 class GraphedGroupMetrics:
-    """:func:`group_metrics` (``units_idx=None``) for tensors on the card,
-    replayed from a CUDA graph.
+    """:func:`group_metrics` for tensors on the card, replayed from a CUDA
+    graph.
 
     The fixed point, the phase simulation and the water-fill are some ten
     thousand small kernels per call, so on the card a call is bound by the
     host's launch rate, not by the device.  The first call at a given shape
-    captures the whole sequence once; every later call copies its inputs
-    into the graph's buffers and replays it — the same kernels on the same
-    values, launched by one host call.  The queue arrays are copied only
-    when they are other tensors than the last call's (they are fixed
-    through a training segment).  ``replays`` counts replays."""
+    (and ``units_idx`` / ``with_finish`` form) captures the whole sequence
+    once; every later call copies its inputs into the graph's buffers and
+    replays it — the same kernels on the same values, launched by one host
+    call.  The queue arrays are copied only when they are other tensors
+    than the last call's (they are fixed through a training segment).
+    ``replays`` counts replays."""
 
     def __init__(self, table: PartitionTable):
         self.table = table
         self._graphs: dict = {}
         self.replays = 0
 
-    def _capture(self, qa, group_idx, group_size, p_idx):
-        static = (QueueArrays(*(x.clone() for x in qa)), group_idx.clone(), group_size.clone(),
-                  p_idx.clone())
-        with torch.cuda.device(group_idx.device):
+    def _capture(self, qa, args, with_finish):
+        static = (QueueArrays(*(x.clone() for x in qa)),) + tuple(a.clone() for a in args)
+
+        def call():
+            s_qa, idx, size, p, *units = static
+            return group_metrics(self.table, s_qa, idx, size, p,
+                                 units_idx=units[0] if units else None, with_finish=with_finish)
+
+        with torch.cuda.device(args[0].device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):             # warm-up off the capture
-                group_metrics(self.table, *static)
+                call()
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                out = group_metrics(self.table, *static)
+                out = call()
         return {"graph": graph, "static": static, "out": out, "qa": None}
 
     def __call__(self, qa: QueueArrays, group_idx: torch.Tensor, group_size: torch.Tensor,
-                 p_idx: torch.Tensor):
-        key = (tuple(group_idx.shape), tuple(qa.comp.shape), group_idx.device)
+                 p_idx: torch.Tensor, units_idx: torch.Tensor | None = None,
+                 with_finish: bool = False):
+        args = (group_idx, group_size, p_idx) + (() if units_idx is None else (units_idx,))
+        key = (tuple(group_idx.shape), tuple(qa.comp.shape), group_idx.device,
+               units_idx is None, with_finish)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._graphs[key] = self._capture(qa, group_idx, group_size, p_idx)
-        s_qa, s_idx, s_size, s_p = entry["static"]
+            entry = self._graphs[key] = self._capture(qa, args, with_finish)
+        s_qa, *s_args = entry["static"]
         if entry["qa"] is None or any(a is not b for a, b in zip(entry["qa"], qa)):
             for dst, src in zip(s_qa, qa):
                 dst.copy_(src)
             entry["qa"] = qa
-        s_idx.copy_(group_idx)
-        s_size.copy_(group_size)
-        s_p.copy_(p_idx)
+        for dst, src in zip(s_args, args):
+            dst.copy_(src)
         entry["graph"].replay()
         self.replays += 1
         return tuple(x.clone() for x in entry["out"])

@@ -1,7 +1,9 @@
 """Offline RL training (paper §IV-B) on a batched engine on the card.
 
-Port of ``repro/core/train.py`` (``train_agent``, ``train_agent_scalar``,
-``TrainConfig``, ``heldout_split``; not ``train_online``).
+Port of ``repro/core/train.py``: ``train_agent``, ``train_agent_scalar``,
+``TrainConfig``, ``heldout_split``, and ``train_online`` (sim-in-the-loop
+training on the queueing reward, on the vectorized serving simulator of
+``repro_torch/online/vecsim.py``; at the end of this file).
 
 ``train_agent`` steps B environments at once.  One engine step is B
 transitions: masked ε-greedy actions for all envs (:func:`act_batch`), one
@@ -460,4 +462,340 @@ def train_agent_scalar(jobs: list[JobProfile], env_cfg: EnvConfig | None = None,
             if verbose:
                 print(f"ep {ep+1:5d} eps={agent.epsilon:.3f} "
                       f"reward={ep_reward:8.1f} eval_tp={rec['eval_throughput']:.3f}")
+    return agent, history
+
+
+# ---------------------------------------------------------------------------
+# Sim-in-the-loop training on queueing reward (+ population-based training)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainOnlineConfig:
+    """Config for :func:`train_online` — the environment is the vectorized
+    serving simulator itself, so the reward is the real queueing outcome
+    (negative per-window wait/turnaround, makespan terminal) rather than
+    the offline per-window throughput proxy."""
+
+    rounds: int = 30                    # collect -> update -> eval cycles
+    traces_per_round: int = 6           # fresh serving traces per member
+    n_arrivals: int = 48                # arrivals per trace
+    window: int = 8                     # serve window (<= env_cfg.window)
+    backfill: bool = True
+    capacity: int = 128                 # engine trace capacity
+    scenarios: tuple = (("poisson", 1.25), ("mmpp", 1.25),
+                        ("heavy_tailed", 1.1), ("diurnal", 1.0))
+    seed: int = 0
+    eps_start: float = 0.5              # round-schedule ε (not cfg.dqn's)
+    eps_end: float = 0.05
+    eps_decay_rounds: int = 20
+    updates_per_round: int = 48         # DQN updates after each collect
+    target_sync_updates: int = 32       # target refresh cadence, in updates
+    push_block: int = 32                # replay ring block-push size
+    population: int = 4                 # PBT members
+    pbt_interval: int = 5               # rounds between exploit/explore
+    pbt_quantile: float = 0.25          # copy bottom q from top q
+    eval_traces: int = 6                # shared eval set, one sweep/round
+    wait_weight: float = 1.0            # reward mix (per arrival)
+    turnaround_weight: float = 0.0
+    makespan_weight: float = 1.0
+    per_alpha: float = 0.0              # PER exponent; 0 = uniform ring
+    per_beta0: float = 0.4
+    per_eps: float = 1e-3
+    dqn: DQNConfig = field(default_factory=lambda: DQNConfig(buffer_size=20_000))
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _stitch_transitions(roll, n_windows: int, makespan: float, cfg: TrainOnlineConfig):
+    """Host-side transition stitcher for one trace rollout (numpy, copied).
+
+    Chains every valid decision step (window-major, step order) into one
+    serving episode.  Window ``w``'s queueing bucket (member waits +
+    turnarounds, normalized per arrival) lands as negative reward on the
+    *last* decision of window ``w`` — the close that committed the plan;
+    windows with no decisions (all first-sight solos) fold into the most
+    recent earlier decision (or the first, for a leading window).  The
+    final transition adds the makespan terminal and sets ``done``; its
+    ``mask2`` is all-False, which the TD target treats as terminal.
+    Returns ``None`` when the trace produced no decisions at all.
+    """
+    valid = _host(roll.valid)[:n_windows]
+    if not valid.any():
+        return None
+    idx = np.argwhere(valid)                      # row-major: window, step
+    m = len(idx)
+    obs = _host(roll.obs)[:n_windows]
+    act = _host(roll.act)[:n_windows]
+    mask = _host(roll.mask)[:n_windows]
+    s = obs[idx[:, 0], idx[:, 1]]
+    a = act[idx[:, 0], idx[:, 1]]
+    mk = mask[idx[:, 0], idx[:, 1]]
+    s2 = np.concatenate([s[1:], np.zeros_like(s[:1])])
+    mask2 = np.concatenate([mk[1:], np.zeros_like(mk[:1])])
+    done = np.zeros(m, np.float32)
+    done[-1] = 1.0
+    norm = 1.0 / max(1, cfg.n_arrivals)
+    bucket = -(cfg.wait_weight * _host(roll.w_wait).astype(np.float64)
+               + cfg.turnaround_weight
+               * _host(roll.w_turn).astype(np.float64))[:n_windows] * norm
+    r = np.zeros(m, np.float64)
+    # last decision with window <= w; leading no-decision windows fold
+    # forward into the first decision
+    tx = np.maximum(np.searchsorted(idx[:, 0], np.arange(n_windows), side="right") - 1, 0)
+    np.add.at(r, tx, bucket)
+    r[-1] += -cfg.makespan_weight * float(makespan) * norm
+    return {"s": s.astype(np.float32), "a": a.astype(np.int32), "r": r.astype(np.float32),
+            "s2": s2.astype(np.float32), "done": done, "mask2": mask2.astype(bool)}
+
+
+def _online_updater(dqn_cfg: DQNConfig, n_updates: int, sync_updates: int, per):
+    """The K-update loop over a replay ring: sample -> double-DQN step ->
+    priority refresh (PER) -> cadenced target sync.  ``per`` is None for
+    the uniform ring or ``(alpha, per_eps)`` for the sum-tree.
+
+    Returns ``run(params, target, opt, replay, generator, updates, beta,
+    draws=None)`` -> ``(params, target, opt, replay, updates)``, a Python
+    loop (the reference's ``lax.fori_loop``).  Update ``i`` samples with
+    ``draws[i]`` when given (the uniform ring's indices, or the PER
+    stratified uniforms), else from ``generator`` (on the ring's device)."""
+
+    def run(params, target, opt, replay, generator, updates: int, beta: float, draws=None):
+        bs = dqn_cfg.batch_size
+        for i in range(n_updates):
+            d = None if draws is None else draws[i]
+            if per is None:
+                batch = replay_sample(replay, bs, idx=d, generator=generator)
+                params, opt, _ = _dqn_update(params, target, opt, batch, dqn_cfg)
+            else:
+                alpha, p_eps = per
+                batch, idx, w = per_sample(replay, bs, alpha, beta, u=d, generator=generator)
+                params, opt, _, td = _dqn_update_per(params, target, opt, batch, w, dqn_cfg)
+                if alpha > 0.0:
+                    replay = per_update(replay, idx, td, alpha, p_eps)
+            updates += 1
+            if updates % sync_updates == 0:
+                target = {k: v.clone() for k, v in params.items()}
+        return params, target, opt, replay, updates
+
+    return run
+
+
+_COLLECTOR_CACHE: dict = {}
+
+
+def _collector_for(env_cfg: EnvConfig, cfg: TrainOnlineConfig, device: torch.device):
+    from repro_torch.online.vecsim import make_rollout_collector
+    key_t = (env_cfg.key(), cfg.window, cfg.backfill, cfg.capacity, str(device))
+    if key_t not in _COLLECTOR_CACHE:
+        if len(_COLLECTOR_CACHE) >= 8:
+            _COLLECTOR_CACHE.pop(next(iter(_COLLECTOR_CACHE)))
+        _COLLECTOR_CACHE[key_t] = make_rollout_collector(
+            env_cfg, window=cfg.window, backfill=cfg.backfill, capacity=cfg.capacity,
+            device=device)
+    return _COLLECTOR_CACHE[key_t]
+
+
+def _seed_of(*parts: int) -> int:
+    """A generator seed for one (seed, round, member, stream) tuple."""
+    return int(np.random.SeedSequence(list(parts)).generate_state(1, np.uint64)[0] >> 1)
+
+
+def _clone_state(params: dict, target: dict, opt: dict):
+    def cp(tree):
+        return {k: v.clone() for k, v in tree.items()}
+    return cp(params), cp(target), {"m": cp(opt["m"]), "v": cp(opt["v"]), "t": opt["t"].clone()}
+
+
+def train_online(jobs: list[JobProfile], env_cfg: EnvConfig | None = None,
+                 cfg: TrainOnlineConfig | None = None, warm_start: DQNAgent | None = None,
+                 verbose: bool = False, *, device: str | torch.device = "cuda"
+                 ) -> tuple[DQNAgent, list[dict]]:
+    """Sim-in-the-loop training on ``device``: the vectorized serving
+    simulator is the environment, queueing outcome is the reward.
+
+    Each round, every population member rolls ``traces_per_round`` fresh
+    traces of its (family, load) scenario through the ε-greedy rollout
+    collector, the host stitches the logged window-seam decisions into
+    replay transitions whose rewards are the engine-accumulated per-window
+    wait/turnaround (plus a terminal makespan term), and
+    ``updates_per_round`` double-DQN updates run on the member's ring.  All
+    members are then scored in ONE ``sweep(param_sets=...)`` call on a
+    shared eval-trace set (mean p99 wait — lower is better); every
+    ``pbt_interval`` rounds the bottom ``pbt_quantile`` of members copy the
+    top performers' weights and re-draw their exploration scale and
+    scenario.  Returns the best member as a :class:`DQNAgent` plus
+    per-round history.  With ``warm_start`` (an agent on ``device``) the
+    population starts from its weights, and its unchanged params are scored
+    in the final eval as an elitism guard: if no trained member beats them
+    strictly, they are returned (``history[-1]["selected"] ==
+    "warm_start"``).
+
+    The random streams are seeded from ``(cfg.seed, round, member)``: the
+    episode draws on the host, the replay samples on the device, so one
+    seed gives the same history on one device.
+    """
+    from repro_torch.core.partition import N_UNITS
+    from repro_torch.online import TRACE_FAMILIES
+    from repro_torch.online.policies import RLDispatchPolicy
+    from repro_torch.online.vecsim import (
+        VectorizedClusterSimulator, build_rl_job_table, compile_trace, same_device, stack_traces,
+    )
+
+    cfg = cfg or TrainOnlineConfig()
+    env_cfg = env_cfg or EnvConfig()
+    device = torch.device(device)
+    if cfg.window > env_cfg.window:
+        raise ValueError(f"serve window {cfg.window} > agent window {env_cfg.window}")
+    for fam, _ld in cfg.scenarios:
+        if fam not in TRACE_FAMILIES:
+            raise ValueError(f"unknown trace family {fam!r}")
+    if warm_start is not None and not same_device(warm_start.device, device):
+        raise ValueError(f"warm_start agent lives on {warm_start.device}, training on {device}")
+    env = CoScheduleEnv(env_cfg)
+    state_dim, n_actions = env.state_dim, env.n_actions
+    pop = max(1, cfg.population)
+    rng = np.random.default_rng(cfg.seed)
+    collect = _collector_for(env_cfg, cfg, device)
+    use_per = cfg.per_alpha > 0.0
+    per_t = (cfg.per_alpha, cfg.per_eps) if use_per else None
+    updater = _online_updater(cfg.dqn, cfg.updates_per_round, max(1, cfg.target_sync_updates),
+                              per_t)
+    blk = cfg.push_block
+    ring_cap = -(-cfg.dqn.buffer_size // blk) * blk
+
+    def _fresh_member(m: int) -> dict:
+        if warm_start is not None:
+            params, target, opt = _clone_state(warm_start.params, warm_start.target_params,
+                                               warm_start.opt)
+        else:
+            seed_agent = DQNAgent(state_dim, n_actions, cfg.dqn, seed=cfg.seed + m, device=device)
+            params, target, opt = seed_agent.params, seed_agent.target_params, seed_agent.opt
+        ring = (per_init(ring_cap, state_dim, n_actions, device) if use_per
+                else replay_init(ring_cap, state_dim, n_actions, device))
+        return {"params": params, "target": target, "opt": opt, "replay": ring,
+                "updates": 0, "stage": {f: [] for f in ("s", "a", "r", "s2", "done", "mask2")},
+                "staged": 0, "env_steps": 0, "eps_scale": 1.0,
+                "scenario": m % len(cfg.scenarios), "score": float("inf")}
+
+    members = [_fresh_member(m) for m in range(pop)]
+
+    # shared eval traces, round-robin over the scenario axis
+    eval_traces = [
+        TRACE_FAMILIES[cfg.scenarios[t % len(cfg.scenarios)][0]](
+            jobs, n=cfg.n_arrivals, load=cfg.scenarios[t % len(cfg.scenarios)][1],
+            seed=cfg.seed + 9000 + t)
+        for t in range(max(1, cfg.eval_traces))]
+    eval_agent = DQNAgent(state_dim, n_actions, cfg.dqn, seed=cfg.seed, device=device)
+    vec = VectorizedClusterSimulator(RLDispatchPolicy(eval_agent, env_cfg), window=cfg.window,
+                                     backfill=cfg.backfill, capacity=cfg.capacity, device=device)
+
+    def _eval_scores(param_list) -> np.ndarray:
+        summ = vec.sweep(eval_traces, param_sets=param_list)
+        return summ.p99_wait.cpu().numpy().astype(np.float64).mean(axis=1)
+
+    widths = torch.full((cfg.traces_per_round,), N_UNITS, dtype=torch.int64, device=device)
+    history: list[dict] = []
+    total_tx = 0
+    for rnd in range(cfg.rounds):
+        frac = min(1.0, rnd / max(1, cfg.eps_decay_rounds))
+        eps_round = cfg.eps_start + (cfg.eps_end - cfg.eps_start) * frac
+        for m, mem in enumerate(members):
+            fam, load = cfg.scenarios[mem["scenario"]]
+            traces = [TRACE_FAMILIES[fam](jobs, n=cfg.n_arrivals, load=load,
+                                          seed=cfg.seed + 1 + rnd * 131 + m * 17 + t)
+                      for t in range(cfg.traces_per_round)]
+            names: dict[str, int] = {}
+            tjobs: list = []
+            batch = stack_traces([compile_trace(t, cfg.capacity, names, tjobs, device="cpu")[0]
+                                  for t in traces], device)
+            rjt = build_rl_job_table(tjobs, device)
+            eps = min(1.0, eps_round * mem["eps_scale"])
+            gen = torch.Generator().manual_seed(_seed_of(cfg.seed, rnd, m, 0))
+            summ, roll = collect(batch, rjt, mem["params"], eps, widths, generator=gen)
+            VectorizedClusterSimulator._check_err(int(summ.err.max()))
+            n_win = summ.dispatches.cpu().numpy()
+            mks = summ.makespan.cpu().numpy().astype(np.float64)
+            roll_np = type(roll)(*(_host(x) for x in roll))
+            for t in range(cfg.traces_per_round):
+                one = type(roll)(*(x[t] for x in roll_np))
+                tx = _stitch_transitions(one, int(n_win[t]), float(mks[t]), cfg)
+                if tx is None:
+                    continue
+                for f in mem["stage"]:
+                    mem["stage"][f].append(tx[f])
+                mem["staged"] += len(tx["a"])
+                mem["env_steps"] += len(tx["a"])
+                total_tx += len(tx["a"])
+            # block-aligned ring pushes; the remainder stays staged
+            if mem["staged"] >= blk:
+                full = {f: np.concatenate(v) for f, v in mem["stage"].items()}
+                n_push = (mem["staged"] // blk) * blk
+                for lo in range(0, n_push, blk):
+                    chunk = {f: torch.as_tensor(v[lo:lo + blk], device=device)
+                             for f, v in full.items()}
+                    chunk["a"] = chunk["a"].long()
+                    mem["replay"] = (per_push(mem["replay"], chunk) if use_per
+                                     else replay_push(mem["replay"], chunk))
+                for f in mem["stage"]:
+                    mem["stage"][f] = [full[f][n_push:]]
+                mem["staged"] -= n_push
+            if mem["replay"].size >= cfg.dqn.batch_size:
+                beta = beta_at(cfg.per_beta0, mem["env_steps"], cfg.dqn.eps_decay_steps)
+                ugen = torch.Generator(device).manual_seed(_seed_of(cfg.seed, rnd, m, 1))
+                (mem["params"], mem["target"], mem["opt"], mem["replay"],
+                 mem["updates"]) = updater(mem["params"], mem["target"], mem["opt"],
+                                           mem["replay"], ugen, mem["updates"], beta)
+
+        scores = _eval_scores([mem["params"] for mem in members])
+        for mem, sc in zip(members, scores):
+            mem["score"] = float(sc)
+        order = np.argsort(scores, kind="stable")
+        rec = {"round": rnd + 1, "eps": float(eps_round), "scores": [float(s) for s in scores],
+               "best_member": int(order[0]), "best_p99": float(scores[order[0]]),
+               "transitions": total_tx}
+        if pop > 1 and cfg.pbt_interval > 0 and rnd < cfg.rounds - 1 \
+                and (rnd + 1) % cfg.pbt_interval == 0:
+            n_q = max(1, int(pop * cfg.pbt_quantile))
+            swaps = []
+            for dst, src in zip(order[-n_q:], order[:n_q]):
+                lo, hi = members[dst], members[src]
+                lo["params"], lo["target"], lo["opt"] = _clone_state(hi["params"], hi["target"],
+                                                                     hi["opt"])
+                lo["eps_scale"] = float(np.clip(hi["eps_scale"] * rng.choice([0.8, 1.25]),
+                                                0.25, 2.0))
+                lo["scenario"] = int(rng.integers(len(cfg.scenarios)))
+                swaps.append((int(dst), int(src)))
+            rec["pbt"] = swaps
+        history.append(rec)
+        if verbose:
+            print(f"round {rnd + 1:3d} eps={eps_round:.3f} best_p99={rec['best_p99']:.2f} "
+                  f"tx={total_tx}", flush=True)
+
+    # final selection (+ warm-start elitism guard: a refresh must beat the
+    # incumbent strictly on eval, else the incumbent's weights are kept)
+    finals = [mem["params"] for mem in members]
+    labels: list = list(range(pop))
+    if warm_start is not None:
+        finals.append(warm_start.params)
+        labels.append("warm_start")
+    scores = _eval_scores(finals)
+    best = int(np.argmin(scores[:pop]))
+    if warm_start is not None and scores[pop] <= scores[best]:
+        best = pop
+    selected = labels[best]
+    agent = DQNAgent(state_dim, n_actions, cfg.dqn, seed=cfg.seed, per_alpha=cfg.per_alpha,
+                     per_beta0=cfg.per_beta0, per_eps=cfg.per_eps, device=device)
+    if selected == "warm_start":
+        agent.params, agent.target_params, agent.opt = _clone_state(
+            warm_start.params, warm_start.target_params, warm_start.opt)
+    else:
+        mem = members[selected]
+        agent.params, agent.target_params, agent.opt = mem["params"], mem["target"], mem["opt"]
+        agent.env_steps = int(mem["env_steps"])
+        agent.updates = int(mem["updates"])
+    if history:
+        history[-1]["selected"] = "warm_start" if selected == "warm_start" else int(selected)
+        history[-1]["final_scores"] = [float(s) for s in scores]
     return agent, history

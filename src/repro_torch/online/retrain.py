@@ -1,7 +1,7 @@
 """MISO-style periodic re-training against the live profile repository.
 Port of ``repro/online/retrain.py``: the proxy reward on the port's
-``train_agent``, on the serving agent's device.  The queueing reward needs
-``train_online``, which is not ported: asking for it raises.
+``train_agent``, the queueing reward on its ``train_online``, both on the
+serving agent's device.
 
 Every ``interval_s`` of *simulated* time (driven by the simulator's TICK
 events), the retrainer snapshots the profile repository — exactly the
@@ -31,7 +31,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 
 from repro_torch.core.agent import DQNConfig
-from repro_torch.core.train import TrainConfig, train_agent
+from repro_torch.core.train import TrainConfig, TrainOnlineConfig, train_agent, train_online
 from repro_torch.online.policies import RLDispatchPolicy
 from repro_torch.online.telemetry import DriftMonitor
 
@@ -46,6 +46,19 @@ def default_retrain_train_config(episodes: int = 240) -> TrainConfig:
         update_every=8,
         dqn=DQNConfig(eps_start=0.25, eps_end=0.01, eps_decay_steps=2000,
                       buffer_size=20_000),
+    )
+
+
+def default_retrain_online_config(rounds: int = 8) -> TrainOnlineConfig:
+    """A refresh-sized sim-in-the-loop budget (``reward="queueing"``):
+    a handful of collect/update rounds, no population (the warm-started
+    incumbent IS the population seed and the elitism guard keeps it when
+    the refresh does not improve eval p99 wait)."""
+    return TrainOnlineConfig(
+        rounds=rounds, traces_per_round=4, n_arrivals=32, capacity=96,
+        population=1, eval_traces=4, updates_per_round=32,
+        eps_start=0.25, eps_end=0.05, eps_decay_rounds=max(1, rounds - 2),
+        dqn=DQNConfig(buffer_size=20_000),
     )
 
 
@@ -76,11 +89,14 @@ class OnlineRetrainer:
 
     * ``"proxy"`` (default) — ``train_agent`` on the offline per-window
       throughput proxy, bit-compatible with pre-queueing behaviour.
-    * ``"queueing"`` — the reference's ``train_online`` refresh on the
-      queueing reward.  ``train_online`` is not ported, so building a
-      retrainer with it raises ``NotImplementedError`` (it never falls
-      back to the proxy reward), and the reference's ``online_cfg`` that
-      sizes it is left out.
+    * ``"queueing"`` — ``train_online`` rolls the repository's jobs as
+      serving traces through the vectorized simulator and optimizes the
+      engine-accumulated wait/turnaround + makespan reward directly (the
+      metric the drift monitor watches), warm-started from the incumbent;
+      ``online_cfg`` sizes the refresh
+      (:func:`default_retrain_online_config` when unset).  History entries
+      carry ``rounds``/``train_eval_p99_wait``/``selected`` instead of the
+      proxy's ``episodes``/``train_eval_throughput``.
 
     The refresh trains on the serving agent's device.
     """
@@ -92,6 +108,7 @@ class OnlineRetrainer:
     reseed: bool = True                  # vary queue draws across cycles
     trigger: str = "clock"               # "clock" | "drift"
     reward: str = "proxy"                # "proxy" | "queueing"
+    online_cfg: TrainOnlineConfig | None = None
     monitor: DriftMonitor = field(default_factory=DriftMonitor)
     history: list = field(default_factory=list)
 
@@ -102,9 +119,6 @@ class OnlineRetrainer:
         if self.reward not in ("proxy", "queueing"):
             raise ValueError(f"unknown reward {self.reward!r}; "
                              f"expected 'proxy' or 'queueing'")
-        if self.reward == "queueing":
-            raise NotImplementedError(
-                "reward='queueing' needs train_online, which is not ported yet")
         self._last_t = 0.0
 
     def __call__(self, now: float, sim) -> None:
@@ -128,14 +142,27 @@ class OnlineRetrainer:
         if len(jobs) < self.min_jobs:
             return
         env_cfg = self.policy.scheduler.env_cfg
-        cfg = self.train_cfg
-        if self.reseed:
-            cfg = replace(cfg, seed=cfg.seed + len(self.history))
-        agent, hist = train_agent(jobs, env_cfg, cfg, heldout=set(),
-                                  warm_start=self.policy.agent,
-                                  device=self.policy.agent.device)
-        cycle = {"episodes": hist[-1]["episode"],
-                 "train_eval_throughput": hist[-1]["eval_throughput"]}
+        if self.reward == "queueing":
+            cfg = self.online_cfg or default_retrain_online_config()
+            if cfg.window > env_cfg.window:
+                # one formation must not span several RL episodes
+                cfg = replace(cfg, window=env_cfg.window)
+            if self.reseed:
+                cfg = replace(cfg, seed=cfg.seed + len(self.history))
+            agent, hist = train_online(jobs, env_cfg, cfg, warm_start=self.policy.agent,
+                                       device=self.policy.agent.device)
+            cycle = {"rounds": hist[-1]["round"],
+                     "train_eval_p99_wait": min(hist[-1]["final_scores"]),
+                     "selected": hist[-1]["selected"]}
+        else:
+            cfg = self.train_cfg
+            if self.reseed:
+                cfg = replace(cfg, seed=cfg.seed + len(self.history))
+            agent, hist = train_agent(jobs, env_cfg, cfg, heldout=set(),
+                                      warm_start=self.policy.agent,
+                                      device=self.policy.agent.device)
+            cycle = {"episodes": hist[-1]["episode"],
+                     "train_eval_throughput": hist[-1]["eval_throughput"]}
         self.policy.hot_swap(agent)
         self.history.append({
             "t_s": now,

@@ -415,3 +415,60 @@ def test_train_step_on_card_matches_cpu(card):
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     for a, b in zip(pg, pc):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5)
+
+
+def test_vecsim_masked_scatter_and_first_index_ties_on_card(card):
+    """The vectorized simulator's primitives on the card: a masked-off write
+    lands in the dropped spare row (no device-side assert, no real row
+    touched), and argmin / first-fit take the first index on ties, as
+    ``jnp.argmin`` / ``jnp.argmax`` do."""
+    from repro_torch.online import vecsim as tv
+
+    x = torch.arange(12, device=card).reshape(2, 6)
+    out = tv._put(x, torch.tensor([6, 2], device=card), torch.tensor([-1, -7], device=card))
+    assert out.tolist() == [[0, 1, 2, 3, 4, 5], [6, 7, -7, 9, 10, 11]]
+    acc = tv._add(torch.zeros(2, 4, device=card), torch.tensor([[4, 1, 1], [0, 4, 4]], device=card),
+                  torch.ones(2, 3, device=card))
+    assert acc.tolist() == [[0, 2, 0, 0], [1, 0, 0, 0]]
+    busy = torch.tensor([[True, True, False, False, True, False, False, False],
+                         [True] * 8], device=card)
+    assert torch.argmin(busy.to(torch.int32), dim=1).tolist() == [2, 0]
+    free = ~busy
+    assert tv._first_true(free).tolist() == [2, 0]
+    ftab = tv._fit_table(free)                       # (2, U, 8): width 1, 2, 4, 8
+    assert tv._first_true(ftab[0]).tolist() == [2, 2, 0, 0]
+    seqs = torch.tensor([[5, 3, 3, 9], [7, 7, 7, 7]], device=card)
+    active = torch.tensor([[True, True, True, False], [True] * 4], device=card)
+    st = tv._State(*([None] * len(tv._State._fields)))._replace(r_active=active, r_seq=seqs)
+    head, exists = tv._head(st)
+    assert head.tolist() == [1, 0] and exists.tolist() == [True, True]
+
+
+def test_vecsim_sweep_on_card_matches_cpu(card):
+    """One sweep of 8 poisson traces on the card equals the same sweep on
+    the CPU: time sharing lane for lane, and the golden agent's RL engine
+    (its forward in f32 without TF32) decision for decision."""
+    from repro_torch.convert import GOLDEN_WINDOW, load_golden_dqn
+    from repro_torch.core import EnvConfig, make_zoo
+    from repro_torch.online import RLDispatchPolicy, TimeSharingPolicy, poisson_trace
+    from repro_torch.online.vecsim import VectorizedClusterSimulator
+
+    zoo = make_zoo(dryrun_dir=None)
+    traces = [poisson_trace(zoo, n=40, load=1.25, seed=s) for s in range(8)]
+    golden = Path(__file__).parent / "golden" / "train_agent_proxy_v1.npz"
+    for make in (lambda dev: TimeSharingPolicy(),
+                 lambda dev: RLDispatchPolicy(load_golden_dqn(golden, dev),
+                                              EnvConfig(window=GOLDEN_WINDOW))):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = VectorizedClusterSimulator(make(dev), window=GOLDEN_WINDOW, capacity=64,
+                                             device=dev)
+            out[dev] = (eng.sweep(traces), eng.run(traces[3]))
+        (sc, rc), (sp, rp) = out["cuda"], out["cpu"]
+        for name, a, b in zip(sc._fields, sc, sp):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-3, msg=name)
+        for name in ("dispatches", "backfills", "err"):
+            assert torch.equal(getattr(sc, name).cpu(), getattr(sp, name)), name
+        assert [(r.group_size, r.partition, r.units, r.backfilled) for r in rc.jobs] == \
+            [(r.group_size, r.partition, r.units, r.backfilled) for r in rp.jobs]
+        assert [s.slices for s in rc.timeline] == [s.slices for s in rp.timeline]

@@ -38,11 +38,13 @@ SLICE_2 = {"repro_torch.core.baselines", "repro_torch.core.metrics",
 # the LM training slice's modules
 SLICE_5 = {"repro_torch.data", "repro_torch.data.pipeline", "repro_torch.optim",
            "repro_torch.optim.adamw", "repro_torch.runtime.lm_train"}
-# the xLSTM family and the online heap path; 61 modules in all
+# the xLSTM family and the online heap path
 SLICE_6 = {"repro_torch.models.xlstm", "repro_torch.online", "repro_torch.online.policies",
            "repro_torch.online.retrain", "repro_torch.online.router",
            "repro_torch.online.simulator", "repro_torch.online.telemetry",
            "repro_torch.online.traces"}
+# the vectorized simulator; 62 modules in all
+SLICE_7 = {"repro_torch.online.vecsim"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -51,4 +53,4 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 61 and SLICE_2 | SLICE_5 | SLICE_6 <= names, out.stdout
+    assert len(names) >= 62 and SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 <= names, out.stdout

@@ -13,6 +13,7 @@ import pathlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import online as jo
 from repro.core import workloads as jwork
@@ -38,6 +39,16 @@ def _golden_j():
 
 _AGENTS = {"j": _golden_j(), "t": load_golden_dqn(GOLDEN, "cpu")}
 _ENV = {"j": JEnvConfig(window=GOLDEN_WINDOW), "t": TEnvConfig(window=GOLDEN_WINDOW)}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The engine is thousands of small ops: one intra-op thread does them as
+    fast as eight and leaves the cores to the suite's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _policy(which: str, side: str):
@@ -185,11 +196,29 @@ def torch_equal(a, b) -> bool:
 
 
 def test_queueing_reward_is_refused():
-    """``train_online`` is not ported: the queueing reward raises when the
-    retrainer is built, and never falls back to the proxy reward."""
+    """Only an unknown reward is refused now: ``reward="queueing"`` runs the
+    port's ``train_online`` (on the serving agent's device, warm-started
+    from it) at each tick and hot-swaps the refreshed agent; the serving
+    agent's own parameters are left as they were (the warm start copies)."""
     pol = to.RLDispatchPolicy(load_golden_dqn(GOLDEN, "cpu"), _ENV["t"])
-    with pytest.raises(NotImplementedError):
-        to.OnlineRetrainer(policy=pol, reward="queueing")
     with pytest.raises(ValueError):
         to.OnlineRetrainer(policy=pol, reward="latency")
-    assert not hasattr(to, "default_retrain_online_config")
+    agent = pol.agent
+    before = {k: v.clone() for k, v in agent.params.items()}
+    trace = to.poisson_trace(ZOO["t"], n=24, load=1.3, seed=7)
+    ocfg = dataclasses.replace(
+        to.default_retrain_online_config(rounds=1), traces_per_round=2, n_arrivals=16,
+        capacity=64, eval_traces=2, updates_per_round=4, push_block=8,
+        dqn=DQNConfig(buffer_size=512, batch_size=8))
+    rt = to.OnlineRetrainer(policy=pol, reward="queueing", online_cfg=ocfg,
+                            interval_s=trace[-1].t / 2.0, min_jobs=3)
+    res = to.ClusterSimulator(pol, window=GOLDEN_WINDOW, tick_interval_s=rt.interval_s,
+                              on_tick=rt).run(trace)
+    assert res.ticks >= 1 and len(rt.history) >= 1
+    for h in rt.history:
+        assert h["rounds"] == 1 and np.isfinite(h["train_eval_p99_wait"])
+        assert h["selected"] in ("warm_start", 0)
+        assert "train_eval_throughput" not in h
+    assert pol.agent is not agent and pol.agent.device == agent.device
+    for k, v in before.items():
+        assert torch_equal(agent.params[k], v)

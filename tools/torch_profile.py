@@ -16,15 +16,17 @@ beside ``scaled_dot_product_attention``'s backward.  Then one step of
 ``chip_smoke.py`` (d)'s xLSTM train tenant (xlstm-125m, 32 x 1024 tokens),
 its kernels filed as mLSTM chunks, sLSTM loop, chunked CE, AdamW, cuBLAS
 and other (some 5 x 10^5 kernels: its trace takes minutes to read).  Then
-the pair of
-``chip_smoke.py`` (prefill 1 x 8192 tokens, decode batch 4 against a
-32768-slot cache, full width, bf16): one prefill step alone, one decode
-step alone, and one co-run macro-step of ``FusedCoRunner`` (both tenants on
-their streams).  For each run it prints the wall time, the device's busy
-time (the union of all kernel intervals, over all streams), the idle share,
-the kernels the device ran, the host's launch calls (kernels, graphs,
-copies), and the device time by kernel class (the union of the class's
-kernel intervals).  Chrome traces go to ``DIR``
+the vectorized simulator's 64-trace sweeps of ``chip_smoke.py`` phase 7,
+time sharing and RL, with the engine's iterations and kernels an
+iteration.  Then the pair of ``chip_smoke.py`` (prefill 1 x 8192 tokens,
+decode batch 4 against a 32768-slot cache, full width, bf16): one prefill
+step alone, one decode step alone, and one co-run macro-step of
+``FusedCoRunner`` (both tenants on their streams).  ``--only`` picks parts
+(``train``, ``lm``, ``xlstm``, ``vecsim``, ``pair``).  For each run it
+prints the wall time, the device's busy time (the union of all kernel
+intervals, over all streams), the idle share, the kernels the device ran,
+the host's launch calls (kernels, graphs, copies), and the device time by
+kernel class (the union of the class's kernel intervals).  Chrome traces go to ``DIR``
 (default ``chiprun_out/profile``).  Needs a card; fails without one.
 """
 from __future__ import annotations
@@ -306,9 +308,50 @@ def attention_backward_alone(torch) -> dict:
     return rec
 
 
+def vecsim_sweeps(torch, out_dir: Path) -> dict:
+    """The vectorized simulator's sweeps at ``chip_smoke.py`` phase 7's
+    settings (64 poisson traces of 80 arrivals, load 1.25, window 8,
+    capacity 128): time sharing, then the RL engine with a seeded untrained
+    agent of phase 4's shape (every formation runs the same episode and
+    co-run model, whatever the weights), each after a warm-up sweep.  Adds
+    the engine's iteration and formation counts and kernels an iteration."""
+    from repro_torch.core import EnvConfig, make_zoo
+    from repro_torch.core.agent import DQNAgent
+    from repro_torch.core.env import CoScheduleEnv
+    from repro_torch.online import (
+        RLDispatchPolicy, TimeSharingPolicy, VectorizedClusterSimulator, poisson_trace,
+    )
+
+    zoo = make_zoo()
+    traces = [poisson_trace(zoo, n=chip_smoke.ONLINE_ARRIVALS, load=chip_smoke.ONLINE_LOAD,
+                            seed=s, capacity=1.0) for s in range(chip_smoke.SWEEP_TRACES)]
+    env_cfg = EnvConfig(window=chip_smoke.TRAIN_WINDOW, c_max=4)
+    env = CoScheduleEnv(env_cfg)
+    recs = {}
+    for label, policy in (
+            ("vecsim_sweep_time_sharing", TimeSharingPolicy()),
+            ("vecsim_sweep_rl", RLDispatchPolicy(DQNAgent(env.state_dim, env.n_actions, seed=0),
+                                                 env_cfg))):
+        eng = VectorizedClusterSimulator(policy, window=chip_smoke.TRAIN_WINDOW,
+                                         capacity=chip_smoke.SWEEP_CAPACITY)
+        eng.sweep(traces)
+        rec = profile(torch, label, lambda: eng.sweep(traces), out_dir, keep=False)
+        stats = dict(eng._runf.stats)
+        rec.update(stats, kernels_per_iteration=rec["kernels"] / max(1, stats["iterations"]))
+        chip_smoke.say(f"[profile] {label}: engine {json.dumps(stats)}, "
+                       f"{rec['kernels_per_iteration']:.0f} kernels an iteration")
+        recs[label] = rec
+    return recs
+
+
+SECTIONS = ("train", "lm", "xlstm", "vecsim", "pair")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=str(ROOT / "chiprun_out" / "profile"))
+    ap.add_argument("--only", nargs="+", choices=SECTIONS, default=list(SECTIONS),
+                    help="profile these parts only (default: all)")
     args = ap.parse_args()
     import torch
 
@@ -318,18 +361,25 @@ def main() -> None:
     from repro_torch.runtime.multitenant import FusedCoRunner
 
     recs = {}
-    for graphs in (True, False):
-        label = f"train_{TRAIN_STEPS}_engine_steps_{'graphed' if graphs else 'eager'}"
-        eng = train_engine(torch, graphs)
-        recs[label] = profile(torch, label, lambda: [eng.step() for _ in range(TRAIN_STEPS)],
-                              out_dir, keep=False)
-        del eng
-
-    recs["lm_train_step"] = lm_train_step(torch, out_dir)
-    recs["attention_backward_alone"] = attention_backward_alone(torch)
-    torch.cuda.empty_cache()
-    recs["xlstm_train_step"] = xlstm_train_step(torch, out_dir)
-    torch.cuda.empty_cache()
+    if "train" in args.only:
+        for graphs in (True, False):
+            label = f"train_{TRAIN_STEPS}_engine_steps_{'graphed' if graphs else 'eager'}"
+            eng = train_engine(torch, graphs)
+            recs[label] = profile(torch, label, lambda: [eng.step() for _ in range(TRAIN_STEPS)],
+                                  out_dir, keep=False)
+            del eng
+    if "lm" in args.only:
+        recs["lm_train_step"] = lm_train_step(torch, out_dir)
+        recs["attention_backward_alone"] = attention_backward_alone(torch)
+        torch.cuda.empty_cache()
+    if "xlstm" in args.only:
+        recs["xlstm_train_step"] = xlstm_train_step(torch, out_dir)
+        torch.cuda.empty_cache()
+    if "vecsim" in args.only:
+        recs.update(vecsim_sweeps(torch, out_dir))
+    if "pair" not in args.only:
+        chip_smoke.say(json.dumps({"card": card, "profile": recs}))
+        return
 
     _, tenants = chip_smoke.make_pair(torch)
     pre, dec = (t.name for t in tenants(("prefill", "decode")))
