@@ -14,7 +14,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
    version eagerly).  Flash attention also runs right-aligned (Sq 1000
    against Skv 8192) and at the edges of its bf16 kernel's 128-row tiles
    (Sq, Skv of 127, 129, 1000, causal and not, Sq > Skv with rows that see
-   no key).  Decode attention also runs with a row of length 0.  RMSNorm
+   no key) and at phase 8's head groups (16/16 and 64/8 heads at 1 x
+   8192).  Decode attention also runs with a row of length 0.  RMSNorm
    runs at the llama3-8b prefill tenant's residual stream (8192 x 4096, bf16
    and f32), at a ragged 1000 x 4100 (bf16) and 1000 x 4101 (f32), whose d
    leaves a scalar head and tail beside the 16-byte vectors, and at
@@ -84,6 +85,30 @@ Phases, each of which stops the run with a non-zero exit on failure:
    then phase 6's trace under ``OnlineRetrainer(reward="queueing")`` with
    ``default_retrain_online_config()``, warm-started from phase 4's agent,
    every 30 simulated minutes: it must fire and hot-swap.
+8. Serving the moe, hybrid and vlm families.  (a) The smoke configs of
+   deepseek-moe-16b, qwen2-moe-a2.7b, jamba-v0.1-52b and chameleon-34b at
+   D=128, f32 with TF32 off, card against CPU: the loss, ``moe_aux`` and
+   ``moe_z`` within 1e-5 relative and ``moe_drop_frac`` equal; ``prefill``
+   and 8 ``decode_step``s, logits rows within 1e-4.  (b) The zoo's
+   qwen2-moe-a2.7b decode job at its published width and depth (batch 8
+   against a 4096-slot cache at ragged lengths, share 0.25, 8 steps) beside
+   phase 3's llama3-8b prefill tenant (share 0.75, 12 steps) on two
+   streams, then each alone: it fails unless the co-run launched 32 flash
+   kernels a prefill step and 24 decode kernels a decode step and each
+   tenant's co-run logits equal its solo logits; then one decode step's
+   ms, device launches and idle share.  (c) ``repro_torch.launch.serve``
+   at deepseek-moe-16b's full width and depth (batch 4, 32 steps): 28 x 32
+   decode launches and finite logits.  (d) jamba-v0.1-52b at its published
+   widths cut to 1 of its 4 super-blocks (the whole model, 103 GB in bf16,
+   does not fit one card): ``make_prefill_step`` on 1 x 8192 tokens (one
+   flash launch, the MoE drop fraction), then 16 ``make_decode_step``
+   steps at batch 8 against a 32768-slot cache at ragged lengths with zero
+   Mamba state.  (e) chameleon-34b at its published widths cut to 16 of 48
+   layers: prefill 1 x 4096, the cache grown by 16 slots, 16 decode steps;
+   then the QK-norm cache: a prefill of 4095 tokens and a decode of token
+   4095 must give the last logits of the prefill of all 4096 within 1e-4
+   in f32 (the bf16 figure is printed beside the same weights' without
+   the QK-norm: two orders of bf16 rounding).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -324,6 +349,10 @@ def phase_kernels(torch, card):
         for causal in (True, False):
             flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=8, hkv=2, batch=2,
                        causal=causal, timed=False)
+    # phase 8's head groups: 1 (qwen2-moe, deepseek-moe: 16/16) and 8
+    # (chameleon: 64/8), at the prefill shape
+    for hq, hkv in ((16, 16), (64, 8)):
+        flash_case(torch, torch.bfloat16, hq=hq, hkv=hkv, timed=False)
     # phase 5's train tenant: its forward and remat recompute run the bf16 kernel
     cfg, shape = lm_train_config()
     flash_case(torch, torch.bfloat16, sq=shape.seq_len, skv=shape.seq_len, hq=cfg.n_heads,
@@ -394,18 +423,30 @@ def phase_schedule(card):
 # phase 3: the co-scheduled pair
 # ---------------------------------------------------------------------------
 
-def make_decode(torch, cfg, share, stream):
+def ragged_starts(batch: int, smax: int, steps: int = DECODE_STEPS) -> list[int]:
+    """Decode start positions at ragged lengths: phase 3's for batch 4
+    against 32768 slots, else the first row ``steps`` short of ``smax`` and
+    the others spread evenly below it, plus 3 (off the tiles' edges)."""
+    if (batch, smax, steps) == (4, 32768, DECODE_STEPS):
+        return [smax - DECODE_STEPS, 24577, 16001, 8191]
+    top = smax - steps
+    return [top] + [top * (batch - i) // batch + 3 for i in range(1, batch)]
+
+
+def make_decode(torch, cfg, share, stream, dec=None):
     """Phase 3's decode tenant of ``cfg`` on ``stream``: batch 4 against a
-    32768-slot cache filled at ragged lengths, weights and cache from seeded
-    ``torch.Generator``s.  The step writes into the cache in place, and the
-    same initial state gives the same steps again (each step reads only the
-    rows before its own write), so ``dataclasses.replace`` of the tenant
-    before it runs makes another that starts alike."""
+    32768-slot cache (or the ``ShapeConfig`` ``dec``) filled at ragged
+    lengths, weights and cache from seeded ``torch.Generator``s.  The step
+    writes into the cache in place, and the same initial state gives the
+    same steps again (each step reads only the rows before its own write),
+    so ``dataclasses.replace`` of the tenant before it runs makes another
+    that starts alike."""
     from repro_torch.configs import SHAPES, scaled_shape
     from repro_torch.models.model import decode_step, init_cache, init_params
     from repro_torch.runtime.multitenant import Tenant
 
-    dec = scaled_shape(SHAPES["decode_32k"], 32, 1)        # batch 4, 32768-slot cache
+    if dec is None:
+        dec = scaled_shape(SHAPES["decode_32k"], 32, 1)    # batch 4, 32768-slot cache
     with torch.cuda.stream(stream):
         d_params = init_params(cfg, seed=2)
         cache = init_cache(d_params, cfg, dec.global_batch, dec.seq_len)
@@ -413,7 +454,7 @@ def make_decode(torch, cfg, share, stream):
         for i in range(cfg.n_layers):
             cache["k"][i].normal_(generator=gen)
             cache["v"][i].normal_(generator=gen)
-        start = [dec.seq_len - DECODE_STEPS, 24577, 16001, 8191][:dec.global_batch]
+        start = ragged_starts(dec.global_batch, dec.seq_len)
         if max(start) + DECODE_STEPS > dec.seq_len:
             fail("decode would write past its cache")
         state0 = (torch.randint(0, cfg.vocab_size, (dec.global_batch,), generator=gen,
@@ -428,25 +469,38 @@ def make_decode(torch, cfg, share, stream):
     return Tenant(f"{cfg.name}:{dec.name}", decode_fn, state0, share, stream=stream)
 
 
+def make_prefill(torch, stream):
+    """Phase 3's llama3-8b prefill tenant's pieces, made on ``stream``: its
+    config, shape (1 x 8192 tokens) and step (state -> last logits)."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models.model import init_params, prefill
+
+    cfg = get_config("llama3-8b")
+    pre = scaled_shape(SHAPES["prefill_32k"], 32, 4)       # batch 1 x 8192 tokens
+    with torch.cuda.stream(stream):
+        p_params = init_params(cfg, seed=1)
+        gen = torch.Generator("cuda").manual_seed(21)
+        tokens = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
+                               generator=gen, device="cuda")
+
+    def prefill_fn(state):
+        logits, _ = prefill(p_params, tokens, cfg, pre.seq_len)
+        return logits
+
+    return cfg, pre, prefill_fn
+
+
 def make_pair(torch):
     """Set up the co-scheduled llama3-8b pair on the card, one CUDA stream
     per tenant, and warm both up.  Returns ``(steps, tenants)``: the steps
     each tenant runs, and ``tenants(which)``, which makes fresh tenants
     (``which`` names "prefill", "decode" or both) that start from the same
     initial state every time."""
-    from repro_torch.configs import SHAPES, get_config, scaled_shape
-    from repro_torch.models.model import init_params, prefill
     from repro_torch.runtime.multitenant import Tenant
 
-    cfg = get_config("llama3-8b")
-    pre = scaled_shape(SHAPES["prefill_32k"], 32, 4)       # batch 1 x 8192 tokens
     s_pre, s_dec = torch.cuda.Stream(), torch.cuda.Stream()
     t0 = time.perf_counter()
-    with torch.cuda.stream(s_pre):
-        p_params = init_params(cfg, seed=1)
-        gen = torch.Generator("cuda").manual_seed(21)
-        tokens = torch.randint(0, cfg.vocab_size, (pre.global_batch, pre.seq_len),
-                               generator=gen, device="cuda")
+    cfg, pre, prefill_fn = make_prefill(torch, s_pre)
     dec = make_decode(torch, cfg, SHARES["decode"], s_dec)
     tok, pos, _ = dec.state
     say(f"[3] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
@@ -456,10 +510,6 @@ def make_pair(torch):
     torch.cuda.synchronize()
     say(f"[3] set-up {time.perf_counter() - t0:.1f} s (weights from seeded torch.Generators, "
         f"cache filled at ragged lengths {pos.tolist()})")
-
-    def prefill_fn(state):
-        logits, _ = prefill(p_params, tokens, cfg, pre.seq_len)
-        return logits
 
     pre_name = f"{cfg.name}:{pre.name}"
     steps = {pre_name: PREFILL_STEPS, dec.name: DECODE_STEPS}
@@ -1400,6 +1450,411 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
     say(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s  ({card})")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: serving the moe, hybrid and vlm families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("deepseek-moe-16b", "qwen2-moe-a2.7b", "jamba-v0.1-52b", "chameleon-34b")
+MOE_JOB = ("qwen2-moe-a2.7b", "decode_32k", 16, 8)     # the zoo's job: batch 8, 4096 slots
+SERVE_ARGV = ["--arch", "deepseek-moe-16b", "--scale", "full", "--batch", "4", "--gen", "32"]
+JAMBA_BLOCKS = 1          # of jamba-v0.1-52b's 4 super-blocks of 8 layers
+CHAMELEON_LAYERS = 16     # of chameleon-34b's 48
+FAMILY_STEPS = 16         # decode steps of (d) and (e)
+FAMILY_BATCH = 8          # (d)'s decode batch
+
+
+def free(torch) -> None:
+    """Collect what was dropped and empty the caching allocator, so that
+    the next model finds the card's memory free."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def grow_cache(cache: dict, smax: int) -> dict:
+    """A dense prefill's S-slot cache (L, B, S, Hkv, D) grown to ``smax``
+    slots, zeros past S, as ``examples/serve_decode.py`` grows it to its
+    horizon."""
+    out = {}
+    for k, v in cache.items():
+        out[k] = v.new_zeros((*v.shape[:2], smax, *v.shape[3:]))
+        out[k][:, :, :v.shape[2]] = v
+    return out
+
+
+def timed_steps(torch, n: int, step) -> list[float]:
+    """``step()`` ``n`` times, each synchronized: its ms."""
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def median(xs: list[float]) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def rel_close(got: float, ref: float, tol: float) -> bool:
+    return got == ref or abs(got - ref) <= tol * abs(ref)
+
+
+def phase_families_reference(torch):
+    """(a) The four archs' smoke configs at D=128 (the kernels' D), f32 with
+    TF32 off, on the card against the CPU: the loss forward with its MoE
+    aux, then ``prefill`` and 8 ``decode_step``s."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as tm
+    from repro_torch.optim import tree_map
+
+    B, S, steps = 2, 40, 8
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke_config(arch).replace(d_head=128, dtype="float32")
+        cpu = tm.init_params(cfg, seed=14, device="cpu")
+        gpu = tree_map(lambda t: t.cuda(), cpu)
+        gen = torch.Generator().manual_seed(15)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=gen)
+        labels = torch.roll(tokens[:, :S], -1, 1)
+        labels[:, -1] = -1
+        out = {}
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            batch = {"tokens": tokens[:, :S].to(dev), "labels": labels.to(dev)}
+            with torch.no_grad():
+                total, _ = tm.loss_fn(params, batch, cfg)
+                _, aux = tm.forward_train(params, batch, cfg)
+            out[dev] = {"loss": total.item(), **{k: v.item() for k, v in aux.items()}}
+        c, g = out["cpu"], out["cuda"]
+        # phase 5 (a)'s loss bound for the losses, the drop fraction equal,
+        # phase 5 (e)'s bound for the logits rows
+        bad = [k for k in ("loss", "moe_aux", "moe_z") if not rel_close(g[k], c[k], LM_LOSS_TOL)]
+        if bad or g["moe_drop_frac"] != c["moe_drop_frac"]:
+            fail(f"{cfg.name}: loss forward on the card {g} differs from the CPU's {c}")
+
+        lc, cc = tm.prefill(cpu, tokens[:, :S], cfg, S)
+        lg, cg = tm.prefill(gpu, tokens[:, :S].cuda(), cfg, S)
+        worst = row_rel_err(torch, lg.cpu(), lc)
+        if cfg.family == "hybrid":     # a fresh cache, as the reference's prefill gives
+            cc, cg = tm.init_cache(cpu, cfg, B, S + steps), tm.init_cache(gpu, cfg, B, S + steps)
+        else:
+            cc, cg = grow_cache(cc, S + steps), grow_cache(cg, S + steps)
+        for t in range(steps):
+            pos = torch.full((B,), S + t, dtype=torch.int32)
+            l1, cc = tm.decode_step(cpu, cc, tokens[:, S + t], pos, cfg)
+            l2, cg = tm.decode_step(gpu, cg, tokens[:, S + t].cuda(), pos.cuda(), cfg)
+            worst = max(worst, row_rel_err(torch, l2.cpu(), l1))
+        say(f"[8] (a) {cfg.name} (D=128, f32, TF32 off, {B} x {S} tokens): card == CPU: loss "
+            f"{g['loss']:.6f} vs {c['loss']:.6f}, moe_aux {g['moe_aux']:.6e} vs "
+            f"{c['moe_aux']:.6e}, moe_z {g['moe_z']:.6e} vs {c['moe_z']:.6e} (bound "
+            f"{LM_LOSS_TOL:g} relative), moe_drop_frac {g['moe_drop_frac']!r} == "
+            f"{c['moe_drop_frac']!r}; prefill + {steps} decode steps logits row relative "
+            f"{worst:.2e} (bound {ROW_TOL['float32']:g})")
+        if not worst <= ROW_TOL["float32"]:
+            fail(f"{cfg.name}: logits on the card differ from the CPU's")
+
+
+def phase_moe_pair(torch, card):
+    """(b) The zoo's qwen2-moe-a2.7b decode job (batch 8 against a
+    4096-slot cache at ragged lengths, share 0.25, 8 steps) beside phase
+    3's llama3-8b prefill tenant (1 x 8192, share 0.75, 12 steps) on two
+    streams, then each alone; then one decode step profiled."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models.model import count_params_analytic
+    from repro_torch.runtime.multitenant import Tenant
+
+    arch, shape_name, bdiv, sdiv = MOE_JOB
+    cfg = get_config(arch)
+    dec_shape = scaled_shape(SHAPES[shape_name], bdiv, sdiv)
+    say(f"[8] (b) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, {cfg.moe.n_routed} routed experts top-{cfg.moe.top_k} of "
+        f"{cfg.moe.d_expert} + {cfg.moe.n_shared} shared, {cfg.n_layers} of {cfg.n_layers} layers "
+        f"(no cut), {count_params_analytic(cfg) / 1e9:.2f} B params, {cfg.dtype}; the zoo's job "
+        f"{MOE_JOB}: batch {dec_shape.global_batch} against {dec_shape.seq_len} slots")
+    steps = {"prefill": PREFILL_STEPS, "decode": DECODE_STEPS}
+    # llama3-8b's 32 layers launch flash once each a prefill step
+    expect = {"flash_attention": 32 * PREFILL_STEPS,
+              "decode_attention": cfg.n_layers * DECODE_STEPS, "rmsnorm": 0}
+
+    def prefill_tenant(stream):
+        p_cfg, pre, fn = make_prefill(torch, stream)
+        with torch.cuda.stream(stream):
+            fn(None)                                     # warm-up
+        return Tenant(f"{p_cfg.name}:{pre.name}", fn, None, SHARES["prefill"], stream=stream)
+
+    def decode_tenant(stream):
+        t = make_decode(torch, cfg, SHARES["decode"], stream, dec_shape)
+        with torch.cuda.stream(stream):
+            t.step_fn(t.state)                           # warm-up; the state is kept
+        return t
+
+    makers = {"prefill": prefill_tenant, "decode": decode_tenant}
+
+    def run(roles):
+        free(torch)
+        return run_group(torch, {r: makers[r] for r in roles}, steps,
+                         lambda r, t: t.state[2] if r == "decode" else t.state)
+
+    names, finish, co, quanta, launches, peak = run(("prefill", "decode"))
+    say(f"[8] (b) co-run on two streams, quanta {quanta}, kernel launches {launches} (expected "
+        f"{expect}), peak device memory {peak:.1f} GiB")
+    if launches != expect:
+        fail(f"the MoE pair's co-run launched {launches} kernels, expected {expect}")
+    solo, solo_out = {}, {}
+    for role in ("prefill", "decode"):
+        _, fin, outputs, _, _, solo_peak = run((role,))
+        solo[role], solo_out[role] = fin[role], outputs[role]
+        say(f"[8] (b) {names[role]} alone: {solo[role]:.3f} s ({1e3 * solo[role] / steps[role]:.1f}"
+            f" ms a step), peak device memory {solo_peak:.1f} GiB")
+    for role, name in names.items():
+        say(f"[8] (b) {name}: co-run finish {finish[role]:.3f} s, solo {solo[role]:.3f} s, "
+            f"slowdown {finish[role] / solo[role]:.3f}  ({card})")
+    makespan, ts = max(finish.values()), sum(solo.values())
+    say(f"[8] (b) co-run makespan {makespan:.3f} s / time sharing {ts:.3f} s = "
+        f"{makespan / ts:.3f}  ({card})")
+    for role, name in names.items():
+        got, ref = co[role], solo_out[role]
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name}: logits of shape {tuple(got.shape)} or non-finite")
+        rel = row_rel_err(torch, got, ref)
+        say(f"[8] (b) {name}: logits {tuple(got.shape)} finite; co-run vs solo row relative "
+            f"{rel:.3e} (bound {ROW_TOL['bfloat16']:g})")
+        if not rel <= ROW_TOL["bfloat16"]:
+            fail(f"{name}: co-run logits differ from the solo run's")
+
+    free(torch)
+    stream = torch.cuda.Stream()
+    tenant = decode_tenant(stream)
+    state = tenant.state
+    with torch.cuda.stream(stream):
+        ms = timed_steps(torch, DECODE_STEPS, lambda: tenant.step_fn(state))
+        n, busy = device_launches(torch, lambda: tenant.step_fn(state))
+    step_ms = median(ms)
+    say(f"[8] (b) {names['decode']} alone, one step at a time: median {step_ms:.2f} ms a step "
+        f"(synchronized; {', '.join(f'{x:.1f}' for x in ms)}), {n} device launches and "
+        f"{busy:.2f} ms of device time a step (profiled): idle share {1 - busy / step_ms:.3f}  "
+        f"({card})")
+    return launches
+
+
+def phase_serve_entry(torch, card):
+    """(c) ``launch/serve.py`` at deepseek-moe-16b's full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import count_params_analytic
+
+    cfg = get_config("deepseek-moe-16b")
+    gen = int(SERVE_ARGV[SERVE_ARGV.index("--gen") + 1])
+    expect = {"flash_attention": 0, "decode_attention": cfg.n_layers * gen, "rmsnorm": 0}
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[8] (c) python -m repro_torch.launch.serve {' '.join(SERVE_ARGV)}: {cfg.name}, "
+        f"{cfg.n_layers} of {cfg.n_layers} layers, {cfg.moe.n_routed} routed experts "
+        f"top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared, "
+        f"{count_params_analytic(cfg) / 1e9:.2f} B params, {cfg.dtype}:")
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = serve.main(SERVE_ARGV)
+    launches = read_launches()
+    say(f"[8] (c) {time.perf_counter() - t0:.1f} s with the weights' init; kernel launches "
+        f"{launches} (expected {expect}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card})")
+    if launches != expect:
+        fail(f"serve launched {launches} kernels, expected {expect}")
+    if not torch.isfinite(logits).all():
+        fail("serve: the last logits are not finite")
+    return launches
+
+
+def phase_jamba(torch, card):
+    """(d) jamba-v0.1-52b at its published widths, cut to JAMBA_BLOCKS of
+    its super-blocks: ``make_prefill_step`` on 1 x 8192 tokens, then 16
+    steps of ``make_decode_step`` at batch 8 against a 32768-slot cache."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models import model as tm
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=JAMBA_BLOCKS * full.attn_every)
+    shape = scaled_shape(SHAPES["prefill_32k"], 32, 4)           # 1 x 8192 tokens
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[8] (d) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, Mamba d_inner {cfg.mamba.expand * cfg.d_model} d_state "
+        f"{cfg.mamba.d_state} chunks of {cfg.mamba.chunk}, {cfg.moe.n_routed} experts "
+        f"top-{cfg.moe.top_k} of {cfg.moe.d_expert} every {cfg.moe.every}, {cfg.dtype}; cut to "
+        f"{JAMBA_BLOCKS} of {full.n_layers // full.attn_every} super-blocks ({cfg.n_layers} of "
+        f"{full.n_layers} layers): {tm.count_params_analytic(cfg) / 1e9:.2f} B params "
+        f"({2 * tm.count_params_analytic(full) / 1e9:.1f} GB in bf16 for the whole "
+        f"{tm.count_params_analytic(full) / 1e9:.2f} B, more than one card holds)")
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, seed=16)
+    gen = torch.Generator("cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch, shape.seq_len), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    say(f"[8] (d) set-up {time.perf_counter() - t0:.1f} s")
+    prefill, out = make_prefill_step(cfg, shape), {}
+    prefill(params, tokens)                                      # warm-up
+    reset_launches()
+    ms = timed_steps(torch, 1, lambda: out.update(r=prefill(params, tokens)))
+    launches = read_launches()
+    logits, _ = out.pop("r")
+    with torch.no_grad():
+        _, aux = tm.forward_train(params, {"tokens": tokens}, cfg)
+    n_moe = JAMBA_BLOCKS * cfg.attn_every // cfg.moe.every
+    say(f"[8] (d) prefill {shape.global_batch} x {shape.seq_len}: {ms[0]:.1f} ms (synchronized), "
+        f"flash launches {launches['flash_attention']}; moe_drop_frac "
+        f"{aux['moe_drop_frac'].item():.4f} summed over its {n_moe} MoE layers (capacity "
+        f"factor {cfg.moe.capacity_factor})  ({card})")
+    if launches["flash_attention"] != JAMBA_BLOCKS or not torch.isfinite(logits).all():
+        fail(f"jamba prefill: {launches} launches, or non-finite logits")
+
+    smax = SHAPES["decode_32k"].seq_len
+    dec = make_decode_step(cfg, FAMILY_BATCH, smax)
+    cache = dec.init_cache(params)
+    cache["attn"]["k"].normal_(generator=gen)
+    cache["attn"]["v"].normal_(generator=gen)
+    start = ragged_starts(FAMILY_BATCH, smax, FAMILY_STEPS)
+    pos = torch.tensor(start, dtype=torch.int32, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (FAMILY_BATCH,), generator=gen, device="cuda")
+    state = {"tok": tok, "pos": pos, "finite": torch.ones((), dtype=torch.bool, device="cuda")}
+
+    def step():
+        logits, _ = dec(params, cache, state["tok"], state["pos"])
+        state.update(tok=logits.argmax(dim=-1), pos=state["pos"] + 1, logits=logits,
+                     finite=state["finite"] & torch.isfinite(logits).all())
+
+    reset_launches()
+    ms = timed_steps(torch, FAMILY_STEPS, step)
+    dlaunches = read_launches()
+    if not state["finite"].item() or dlaunches["decode_attention"] != JAMBA_BLOCKS * FAMILY_STEPS:
+        fail(f"jamba decode: {dlaunches} launches, or non-finite logits")
+    last = state["pos"] - 1                                      # re-write the last slot
+    n, busy = device_launches(torch, lambda: dec(params, cache, state["tok"], last))
+    say(f"[8] (d) decode batch {FAMILY_BATCH} against {smax} slots (attention cache at ragged "
+        f"lengths {start}, zero Mamba state): {FAMILY_STEPS} steps of "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms (median {median(ms):.2f}), {n} device launches "
+        f"and {busy:.2f} ms of device time a step: idle share {1 - busy / median(ms):.3f}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card})")
+    return {k: launches[k] + dlaunches[k] for k in launches}
+
+
+def phase_chameleon(torch, card):
+    """(e) chameleon-34b at its published widths, cut to CHAMELEON_LAYERS
+    layers: prefill 1 x 4096, the cache grown to the horizon, 16 decode
+    steps; then the QK-norm cache: a prefill of S - 1 tokens and a decode
+    of token S - 1 against the last logits of the prefill of all S, in
+    bf16 and in f32."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models import model as tm
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    full = get_config("chameleon-34b")
+    cfg = full.replace(n_layers=CHAMELEON_LAYERS)
+    shape = scaled_shape(SHAPES["prefill_32k"], 32, 8)           # 1 x 4096 tokens
+    S = shape.seq_len
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[8] (e) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head} with QK-norm, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; cut to "
+        f"{cfg.n_layers} of {full.n_layers} layers: {tm.count_params_analytic(cfg) / 1e9:.2f} B "
+        f"params (the whole {tm.count_params_analytic(full) / 1e9:.2f} B is "
+        f"{2 * tm.count_params_analytic(full) / 1e9:.1f} GB in bf16)")
+    params = tm.init_params(cfg, seed=18)
+    gen = torch.Generator("cuda").manual_seed(19)
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=gen, device="cuda")
+    prefill, out = make_prefill_step(cfg, shape), {}
+    prefill(params, tokens)                                      # warm-up
+    reset_launches()
+    ms = timed_steps(torch, 1, lambda: out.update(r=prefill(params, tokens)))
+    launches = read_launches()
+    logits_full, cache = out.pop("r")
+    cache = grow_cache(cache, S + FAMILY_STEPS)
+    dec = make_decode_step(cfg, 1, S + FAMILY_STEPS)
+    state = {"tok": logits_full.argmax(dim=-1),
+             "pos": torch.full((1,), S, dtype=torch.int32, device="cuda"),
+             "finite": torch.isfinite(logits_full).all()}
+
+    def step():
+        logits, _ = dec(params, cache, state["tok"], state["pos"])
+        state.update(tok=logits.argmax(dim=-1), pos=state["pos"] + 1, logits=logits,
+                     finite=state["finite"] & torch.isfinite(logits).all())
+
+    reset_launches()
+    dms = timed_steps(torch, FAMILY_STEPS, step)
+    dlaunches = read_launches()
+    say(f"[8] (e) prefill 1 x {S}: {ms[0]:.1f} ms (synchronized), {launches['flash_attention']} "
+        f"flash launches; {FAMILY_STEPS} decode steps against the grown cache of "
+        f"{S + FAMILY_STEPS} slots: {', '.join(f'{x:.1f}' for x in dms)} ms (median "
+        f"{median(dms):.2f}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB  ({card})")
+    if (launches["flash_attention"] != cfg.n_layers
+            or dlaunches["decode_attention"] != cfg.n_layers * FAMILY_STEPS
+            or not state["finite"].item()):
+        fail(f"chameleon: launches {launches}, {dlaunches} or non-finite logits")
+
+    last = state["pos"] - 1                                      # re-write the last slot
+    n, busy = device_launches(torch, lambda: dec(params, cache, state["tok"], last))
+    say(f"[8] (e) a decode step: {n} device launches and {busy:.2f} ms of device time: idle "
+        f"share {1 - busy / median(dms):.3f}  ({card})")
+
+    # the QK-norm cache: prefill S - 1 tokens, decode token S - 1, against
+    # the last logits of the prefill of all S.  In bf16 the two orders of
+    # rounding part by ~1.3e-2, as much as the same weights part without
+    # the QK-norm (the dense family; both printed); in f32 the same model
+    # at the same width must agree within ROW_TOL["float32"].
+    del cache
+    rels = {"bfloat16": continuation_err(torch, cfg, params, tokens, shape, logits_full),
+            "bfloat16, no QK-norm": continuation_err(torch, cfg.replace(family="dense"), params,
+                                                     tokens, shape)}
+    del params, logits_full
+    free(torch)
+    f32 = cfg.replace(dtype="float32")
+    params = tm.init_params(f32, seed=18)                        # the same draws, unrounded
+    rels["float32"] = continuation_err(torch, f32, params, tokens, shape)
+    say(f"[8] (e) QK-norm cache: prefill {S - 1} tokens + decode token {S - 1} against the "
+        f"prefill of all {S}, last logits row relative: bf16 {rels['bfloat16']:.3e} (two "
+        f"orders of bf16 rounding, not bounded; the same weights without the QK-norm "
+        f"{rels['bfloat16, no QK-norm']:.3e}), f32 {rels['float32']:.3e} (bound "
+        f"{ROW_TOL['float32']:g}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    if not rels["float32"] <= ROW_TOL["float32"]:
+        fail("chameleon: the continuation after a prefill differs from teacher forcing")
+    return {k: launches[k] + dlaunches[k] for k in launches}
+
+
+def continuation_err(torch, cfg, params, tokens, shape, logits_full=None) -> float:
+    """Row relative error of a prefill of S - 1 tokens and a decode of
+    token S - 1 (the cache grown to S) against the last logits of a
+    prefill of all S (given, or run here)."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    S = shape.seq_len
+    if logits_full is None:
+        logits_full, _ = make_prefill_step(cfg, shape)(params, tokens)
+    short = dataclasses.replace(shape, name=f"{shape.name}-1", seq_len=S - 1)
+    _, cache = make_prefill_step(cfg, short)(params, tokens[:, :S - 1])
+    pos = torch.full((1,), S - 1, dtype=torch.int32, device="cuda")
+    logits, _ = make_decode_step(cfg, 1, S)(params, grow_cache(cache, S), tokens[:, S - 1], pos)
+    return row_rel_err(torch, logits, logits_full)
+
+
+def phase_families(torch, card):
+    """Phase 8; returns the kernel launches of its main paths (b)-(e)."""
+    t_phase = time.perf_counter()
+    phase_families_reference(torch)
+    runs = [phase_moe_pair(torch, card), phase_serve_entry(torch, card),
+            phase_jamba(torch, card), phase_chameleon(torch, card)]
+    free(torch)
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    say(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s, launches on its main paths "
+        f"{launches}  ({card})")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1417,9 +1872,12 @@ def main() -> None:
     phase_xlstm_reference(torch, card)
     trace, heap = phase_online(torch, card, agent)
     phase_vecsim(torch, card, agent, trace, heap)
+    families = phase_families(torch, card)
     # launches on the main paths: the co-run pair, training the co-scheduler,
-    # the train pair and step 4's pair (no path of the package calls rmsnorm)
-    launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] for name in pair}
+    # the train pair, step 4's pair and phase 8's serving runs (no path of
+    # the package calls rmsnorm)
+    launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
+                for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

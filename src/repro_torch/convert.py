@@ -1,9 +1,10 @@
 """Weights and agent state carried across from the JAX package.
 
 Both packages keep parameters as nested dicts with the same keys, and the
-dense model's layers (the xLSTM model's ``pairs/mlstm/...`` and
-``pairs/slstm/...``) stacked on a leading axis (the reference's vmapped
-init), so conversion is a leaf-by-leaf copy; the same
+layers stacked on a leading axis (the reference's vmapped init: the dense,
+MoE and vlm models' ``layers/...``, the Jamba model's
+``blocks/sub{i}/...``, the xLSTM model's ``pairs/mlstm/...`` and
+``pairs/slstm/...``), so conversion is a leaf-by-leaf copy; the same
 holds for the model's AdamW state.  A DQN
 agent carries its online and target parameters and its Adam state
 (``m``, ``v``, ``t``), so training continues across the packages.  Inputs

@@ -1,6 +1,7 @@
 """GQA attention: prefill (flash kernel) and decode (KV-cache kernel) paths.
 
-Port of the self-attention parts of ``repro/models/attention.py``.
+Port of the self-attention parts of ``repro/models/attention.py``, with
+the vlm family's QK-norm after RoPE.
 """
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, pdtype
+from repro_torch.models.layers import apply_rope, dense_init, pdtype, qk_norm
 
 
 def init_attn(generator, cfg, layers: int | None = None, device="cuda") -> dict:
@@ -48,14 +49,20 @@ def _project_kv(p, x, cfg):
 def attn_apply(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor, *, causal: bool = True):
     """Full-sequence attention (prefill).  x: (B, S, M).
 
-    Returns ``(out, k, v)``: the roped keys and the values are what a
-    prefill stores in its cache, so the cache needs no second projection."""
+    Returns ``(out, k, v)``: the keys attention used (roped, and for the
+    vlm family QK-normed) and the values are what a prefill stores in its
+    cache, so the cache needs no second projection.  The reference's
+    prefill rebuilds its cache keys without the QK-norm, so its vlm cache
+    holds raw keys from a prefill and normed keys from decode steps; here
+    both are normed (pinned by ``tests/test_torch_vlm.py``)."""
     B, S, _ = x.shape
     q = _project_q(p, x, cfg)
     k, v = _project_kv(p, x, cfg)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.family == "vlm":
+        q, k = qk_norm(q), qk_norm(k)
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
     return out.reshape(B, S, cfg.q_dim) @ p["wo"], k, v
 
@@ -86,6 +93,8 @@ def attn_decode(p: dict, x_t: torch.Tensor, cache: dict, pos: torch.Tensor, cfg)
     if cfg.rope_theta > 0:
         q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k_t = apply_rope(k_t[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    if cfg.family == "vlm":
+        q, k_t = qk_norm(q), qk_norm(k_t)
     b_idx = torch.arange(B, device=x_t.device)
     idx = pos.long()
     cache["k"][b_idx, idx] = k_t.to(cache["k"].dtype)

@@ -1,7 +1,7 @@
 """Shared layer primitives: init, RMSNorm, rotary embeddings, numerics policy.
 
-Port of the parts of ``repro/models/layers.py`` the dense decoder and the
-xLSTM blocks use.
+Port of the parts of ``repro/models/layers.py`` the decoder families use
+(all but the encoder-decoder's).
 Random weights come from an explicit ``torch.Generator``; they do not
 reproduce the reference's ``jax.random`` draws (weights are carried across
 with :mod:`repro_torch.convert` where the two must agree).
@@ -34,19 +34,21 @@ def _truncated_normal_(out: torch.Tensor, std: float, generator: torch.Generator
     return out.copy_(x)
 
 
-def dense_init(generator, shape, dtype, in_axis: int = 0, layers: int | None = None,
-               device="cuda") -> torch.Tensor:
+def dense_init(generator, shape, dtype, in_axis: int = 0,
+               layers: int | tuple[int, ...] | None = None, device="cuda") -> torch.Tensor:
     """Truncated-normal fan-in init (stddev 1/sqrt(fan_in)).
 
-    ``layers`` stacks ``layers`` independent draws on a leading axis (the
-    reference's vmapped per-layer init), filled one layer at a time so the
-    f32 scratch stays one layer large."""
+    ``layers`` stacks independent draws on leading axes (the reference's
+    vmapped per-layer init; a tuple such as ``(L, E)`` for a stack of
+    expert matrices), filled one ``shape`` slice at a time so the f32
+    scratch stays one slice large."""
     std = 1.0 / math.sqrt(max(1, shape[in_axis] if shape else 1))
     if layers is None:
         return _truncated_normal_(torch.empty(shape, dtype=dtype, device=device), std, generator)
-    out = torch.empty((layers, *shape), dtype=dtype, device=device)
-    for i in range(layers):
-        _truncated_normal_(out[i], std, generator)
+    lead = (layers,) if isinstance(layers, int) else tuple(layers)
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    for part in out.view(-1, *shape):
+        _truncated_normal_(part, std, generator)
     return out
 
 
@@ -71,6 +73,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Te
     var = x.float().square().mean(dim=-1, keepdim=True)
     inv = torch.rsqrt(var + eps).to(x.dtype)
     return x * inv * scale.to(x.dtype)
+
+
+def qk_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-head RMS normalization of q or k over the last axis (Chameleon's
+    QK-norm), in f32 and cast back to the input's dtype."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

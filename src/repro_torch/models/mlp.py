@@ -1,4 +1,4 @@
-"""SwiGLU MLP block of the dense decoder (port of ``repro/models/mlp.py``)."""
+"""SwiGLU MLP block of the decoder families (port of ``repro/models/mlp.py``)."""
 from __future__ import annotations
 
 import torch
@@ -7,9 +7,10 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dense_init, pdtype
 
 
-def init_swiglu(generator, cfg, layers: int | None = None, device="cuda") -> dict:
+def init_swiglu(generator, cfg, layers: int | None = None, device="cuda",
+                d_ff: int | None = None) -> dict:
     dt = pdtype(cfg)
-    M, Fd = cfg.d_model, cfg.d_ff
+    M, Fd = cfg.d_model, d_ff or cfg.d_ff
     return {
         "wg": dense_init(generator, (M, Fd), dt, layers=layers, device=device),
         "wu": dense_init(generator, (M, Fd), dt, layers=layers, device=device),

@@ -7,10 +7,11 @@
     init_cache(params, cfg, batch, max_len)   -> cache dict
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
 
-Port of the dense and ``ssm`` (xLSTM) families of ``repro/models/model.py``;
-the MoE, hybrid, vlm and encoder-decoder families are not ported yet.
-:func:`count_params_analytic` covers every family, because the job
-profiles of the whole zoo need it.
+Port of the decoder-only families of ``repro/models/model.py``: dense,
+moe (the dense stack with MoE MLPs), vlm (the dense stack with QK-norm),
+hybrid (Jamba super-blocks) and ssm (xLSTM pairs); the encoder-decoder
+(audio) family is not ported yet.  :func:`count_params_analytic` covers
+every family, because the job profiles of the whole zoo need it.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import embed_init, ones_init, pdtype, rmsnorm
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def require_ported(cfg) -> None:
@@ -37,9 +38,11 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = pdtype(cfg)
     p: dict = {"emb": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, device)}
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        p["blocks"] = tfm.init_jamba_stack(gen, cfg, device)
+    elif cfg.family == "ssm":
         p["pairs"] = tfm.init_xlstm_stack(gen, cfg, device)
-    else:
+    else:  # dense / moe / vlm
         p["layers"] = tfm.init_dense_stack(gen, cfg, device)
     p["final_norm"] = ones_init((cfg.d_model,), torch.float32, device)
     if not cfg.tie_embeddings:
@@ -65,6 +68,8 @@ def _train_stack(params, tokens, cfg):
     require_ported(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)
+    if cfg.family == "hybrid":
+        return tfm.jamba_stack_train(params["blocks"], x, cfg, positions)
     if cfg.family == "ssm":
         return tfm.xlstm_stack_train(params["pairs"], x, cfg, positions)
     return tfm.dense_stack_train(params["layers"], x, cfg, positions)
@@ -95,7 +100,8 @@ def _chunk_ce(params, x_c, labels_c, cfg):
 
 
 def loss_fn(params, batch, cfg):
-    """Next-token CE + z-loss. labels: (B, S) int, -1 = masked.
+    """Next-token CE + z-loss (+ the MoE aux losses). labels: (B, S) int,
+    -1 = masked.
 
     The unembedding + CE is sequence-chunked (each chunk of ``LOSS_CHUNK``
     tokens checkpointed): the (B, S, V) logits are never alive at once, at
@@ -117,8 +123,9 @@ def loss_fn(params, batch, cfg):
     loss = ce_sum / n_tok
     z_loss = 1e-4 * z_sum / n_tok
     total = loss + z_loss + aux["moe_aux"] + aux["moe_z"]
-    metrics = {"loss": loss.detach(), "z_loss": z_loss.detach(), "moe_aux": aux["moe_aux"],
-               "moe_drop_frac": aux["moe_drop_frac"], "tokens": n_tok.detach()}
+    metrics = {"loss": loss.detach(), "z_loss": z_loss.detach(),
+               "moe_aux": aux["moe_aux"].detach(), "moe_drop_frac": aux["moe_drop_frac"].detach(),
+               "tokens": n_tok.detach()}
     return total, metrics
 
 
@@ -128,9 +135,12 @@ def loss_fn(params, batch, cfg):
 
 def init_cache(params, cfg, batch: int, max_len: int) -> dict:
     require_ported(cfg)
+    device = params["emb"].device
+    if cfg.family == "hybrid":
+        return tfm.init_jamba_cache(cfg, batch, max_len, device=device)
     if cfg.family == "ssm":
-        return tfm.init_xlstm_cache(cfg, batch, max_len, device=params["emb"].device)
-    return tfm.init_dense_cache(cfg, batch, max_len, device=params["emb"].device)
+        return tfm.init_xlstm_cache(cfg, batch, max_len, device=device)
+    return tfm.init_dense_cache(cfg, batch, max_len, device=device)
 
 
 @torch.no_grad()
@@ -139,7 +149,9 @@ def decode_step(params, cache, token, pos, cfg):
 
     The cache is updated in place and returned."""
     x_t = _embed(params, token[:, None], cfg)[:, 0]        # (B, M)
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        x_t, cache = tfm.jamba_stack_decode(params["blocks"], x_t, cache, pos, cfg)
+    elif cfg.family == "ssm":
         x_t, cache = tfm.xlstm_stack_decode(params["pairs"], x_t, cache, pos, cfg)
     else:
         x_t, cache = tfm.dense_stack_decode(params["layers"], x_t, cache, pos, cfg)
@@ -151,19 +163,24 @@ def prefill(params, tokens, cfg, max_len: int):
     """Full-sequence prefill -> (last-position logits, cache).
 
     As in the reference, the cache is ``S`` long whatever ``max_len`` says;
-    its K/V come from each layer's attention call (roped keys).  For the
-    ``ssm`` family the reference returns the last logits of the parallel
-    forward and a *fresh* zero cache (its documented limitation: serving
-    code rebuilds the recurrent state by a decode warm-up); so does this."""
+    its K/V come from each layer's attention call (roped keys, QK-normed
+    for the vlm family: the reference stores raw keys there).  For the
+    ``hybrid`` and ``ssm`` families the reference returns the last logits
+    of the parallel forward and a *fresh* zero cache (its documented
+    limitation: serving code rebuilds the recurrent state by a decode
+    warm-up); so does this."""
     require_ported(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)
-    if cfg.family == "ssm":
-        x = tfm.xlstm_stack_apply(params["pairs"], x, cfg, positions)
+    if cfg.family in ("hybrid", "ssm"):
+        if cfg.family == "hybrid":
+            x, _ = tfm.jamba_stack_apply(params["blocks"], x, cfg, positions)
+        else:
+            x = tfm.xlstm_stack_apply(params["pairs"], x, cfg, positions)
         return _logits(params, x[:, -1, :], cfg), init_cache(params, cfg, B, S)
     cache = tfm.init_dense_cache(cfg, B, S, device=tokens.device)
-    x = tfm.dense_stack_apply(params["layers"], x, cfg, positions, kv_out=cache)
+    x, _ = tfm.dense_stack_apply(params["layers"], x, cfg, positions, kv_out=cache)
     return _logits(params, x[:, -1, :], cfg), cache
 
 

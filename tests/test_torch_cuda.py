@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version, the dense model on the card against the same model on the CPU,
+version, the dense model, the MoE dispatch and the Mamba scan on the card
+against the same code on the CPU,
 the stream executor on the card, the vectorized environment (its perfmodel
 replayed from a CUDA graph) against the CPU, and a short training run.
 
@@ -73,7 +74,7 @@ def _check_decode(q, k, v, lens):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("group", [1, 4, 5, 8])
 def test_decode_kernel_matches_plain(card, dtype, group):
     rng = np.random.default_rng(group)
     _check_decode(*_decode_inputs(rng, [1000, 333, 1, 0, 64], 1000, 2, group, dtype, card))
@@ -142,6 +143,23 @@ def test_flash_kernel_matches_plain(card, dtype, Sq, Skv, causal):
     assert flash_attention.launches == before + 1
     ref = flash_attention_plain(q, k, v, causal=causal)
     _assert_rows_close(out, ref, dtype)
+
+
+# the zoo's head groups: 1 (deepseek-moe, qwen2-moe: 16/16), 5 (qwen2.5-14b:
+# 40/8) and 8 (chameleon: 64/8)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hq,Hkv", [(16, 16), (40, 8), (64, 8)])
+def test_flash_kernel_head_groups(card, dtype, Hq, Hkv):
+    rng = np.random.default_rng(Hq)
+    B, Sq, Skv, D = 1, 300, 300, 128
+    q = _randn(rng, (B, Sq, Hq, D), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_rows_close(out, flash_attention_plain(q, k, v, causal=True), dtype)
 
 
 # the bf16 kernel's tiles are 128 q rows by 128 kv rows: one row short of a
@@ -222,6 +240,51 @@ def test_model_on_card_matches_cpu(card):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _first_layer(tree):
+    return {k: _first_layer(v) if isinstance(v, dict) else v[0] for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("cap", [0.5, 1.25])
+def test_moe_on_card_matches_cpu(card, cap):
+    """The dispatch drops the same slots on the card (argsort, bincount and
+    the spare-row scatter); outputs within the f32 row bound."""
+    import dataclasses
+
+    from repro_torch.models import moe as tmoe
+
+    cfg = get_smoke_config("deepseek-moe-16b").replace(dtype="float32")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    cpu = _first_layer(tm.init_params(cfg, seed=4, device="cpu")["layers"]["moe"])
+    gpu = _to(cpu, card)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 64, 64)).astype(np.float32))
+    yc, auxc = tmoe.moe_apply(cpu, x, cfg)
+    yg, auxg = tmoe.moe_apply(gpu, x.to(card), cfg)
+    assert auxg["moe_drop_frac"].item() == auxc["moe_drop_frac"].item()
+    assert (auxc["moe_drop_frac"].item() > 0) == (cap < 1)
+    _assert_rows_close(yg.cpu(), yc, torch.float32)
+    _assert_rows_close(tmoe.moe_decode(gpu, x[0].to(card), cfg).cpu(),
+                       tmoe.moe_decode(cpu, x[0], cfg), torch.float32)
+
+
+def test_mamba_on_card_matches_cpu(card):
+    """The chunked scan (3 chunks of 16, the last one ragged) and the
+    decode recurrence."""
+    from repro_torch.models import mamba as tmb
+
+    cfg = get_smoke_config("jamba-v0.1-52b").replace(dtype="float32")
+    cpu = _first_layer(tm.init_params(cfg, seed=6, device="cpu")["blocks"]["sub0"]["mamba"])
+    gpu = _to(cpu, card)
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 37, 64)).astype(np.float32))
+    _assert_rows_close(tmb.mamba_apply(gpu, x.to(card), cfg).cpu(),
+                       tmb.mamba_apply(cpu, x, cfg), torch.float32)
+    sc = tmb.init_mamba_state(cfg, 2, device="cpu")
+    sg = tmb.init_mamba_state(cfg, 2, device=card)
+    for t in range(4):
+        yc, sc = tmb.mamba_decode(cpu, x[:, t], sc, cfg)
+        yg, sg = tmb.mamba_decode(gpu, x[:, t].to(card), sg, cfg)
+        _assert_rows_close(yg.cpu(), yc, torch.float32)
 
 
 def test_fused_corunner_streams_match_sequential(card):

@@ -156,7 +156,7 @@ def test_three_train_steps_match_reference(setup):
 
 def test_train_tenant_learns_and_refuses_other_families():
     """The tenant's state carries each step's metrics; on its fixed markov
-    batch the loss falls.  A family that is not ported (hybrid) is refused."""
+    batch the loss falls.  A family that is not ported (audio) is refused."""
     _, tcfg = _cfgs()
     t = make_train_tenant("llama-train", tcfg, 0.75, seq=32, batch=4, seed=5, device="cpu")
     state = t.state
@@ -168,4 +168,4 @@ def test_train_tenant_learns_and_refuses_other_families():
     assert state[1]["count"].item() == 8
     with pytest.raises(NotImplementedError):
         tm.loss_fn({}, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
-                   t_smoke("jamba-v0.1-52b"))
+                   t_smoke("seamless-m4t-large-v2"))

@@ -116,5 +116,6 @@ def test_init_params_mirror_reference_tree():
 
 
 def test_other_families_are_refused():
+    """The audio (encoder-decoder) family is not ported yet."""
     with pytest.raises(NotImplementedError):
-        tm.init_params(t_smoke("deepseek-moe-16b"), device="cpu")
+        tm.init_params(t_smoke("seamless-m4t-large-v2"), device="cpu")

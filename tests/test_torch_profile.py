@@ -84,6 +84,24 @@ def test_train_step_classes():
         "flash forward"]
 
 
+def test_serve_step_classes():
+    """Kernels of a serving step: those launched inside the MoE or Mamba
+    scan regions take the region's class, even a cuBLAS product; the rest
+    are filed by name."""
+    gemm = "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n"
+    events = [_op("user_annotation", "moe", 1, 0, 10),
+              _op("user_annotation", "mamba_scan", 1, 50, 10)]
+    launches = [(1, 2, 10), (1, 5, 11), (1, 20, 12), (1, 55, 13), (1, 70, 14)]
+    names = [gemm, "elementwise", gemm, "elementwise",
+             "_ZN11repro_torch24decode_split_bf16_kernelEPK13__nv_bfloat16"]
+    kernels = []
+    for (tid, ts, corr), name in zip(launches, names):
+        events.append(_op("cuda_runtime", "cudaLaunchKernel", tid, ts, correlation=corr))
+        kernels.append(_op("kernel", name, 7, 1000 + corr, correlation=corr))
+    assert torch_profile.serve_step_classes(events, kernels, fwd_tid=1) == [
+        "MoE", "MoE", "matmul (cuBLAS)", "Mamba scan", "decode_attention"]
+
+
 def test_region_spans_on_a_real_trace(tmp_path):
     """On a CPU trace of the port's loss and gradients, the CE's backward
     nodes are found through their sequence numbers."""

@@ -18,11 +18,15 @@ its kernels filed as mLSTM chunks, sLSTM loop, chunked CE, AdamW, cuBLAS
 and other (some 5 x 10^5 kernels: its trace takes minutes to read).  Then
 the vectorized simulator's 64-trace sweeps of ``chip_smoke.py`` phase 7,
 time sharing and RL, with the engine's iterations and kernels an
-iteration.  Then the pair of ``chip_smoke.py`` (prefill 1 x 8192 tokens,
+iteration.  Then one step of each of phase 8's serving runs (the
+qwen2-moe decode job, jamba's prefill and decode, chameleon's decode), its
+kernels filed as MoE and Mamba scan (regions the package marks), flash,
+decode attention, cuBLAS and other.  Then the pair of ``chip_smoke.py``
+(prefill 1 x 8192 tokens,
 decode batch 4 against a 32768-slot cache, full width, bf16): one prefill
 step alone, one decode step alone, and one co-run macro-step of
 ``FusedCoRunner`` (both tenants on their streams).  ``--only`` picks parts
-(``train``, ``lm``, ``xlstm``, ``vecsim``, ``pair``).  For each run it
+(``train``, ``lm``, ``xlstm``, ``vecsim``, ``serve``, ``pair``).  For each run it
 prints the wall time, the device's busy time (the union of all kernel
 intervals, over all streams), the idle share, the kernels the device ran,
 the host's launch calls (kernels, graphs, copies), and the device time by
@@ -51,7 +55,8 @@ TRAIN_STEPS = 5
 # ``torch.profiler.record_function`` (the CE's forward ops also mark their
 # backward nodes, by autograd sequence number), then kernel names
 REGIONS = {"flash_attention_bwd": "attention backward", "chunked_ce": "chunked CE",
-           "adamw": "AdamW", "mlstm_chunks": "mLSTM chunks", "slstm_loop": "sLSTM loop"}
+           "adamw": "AdamW", "mlstm_chunks": "mLSTM chunks", "slstm_loop": "sLSTM loop",
+           "moe": "MoE", "mamba_scan": "Mamba scan"}
 CLASSES = (("flash_attention", ("flash_fwd",)),
            ("decode_attention", ("decode_split", "decode_combine")),
            ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_regs_kernel")),
@@ -109,6 +114,28 @@ def train_step_classes(events: list, kernels: list, fwd_tid) -> list[str]:
     then attention backward, chunked CE or AdamW when the host call that
     launched it lies in one of :func:`region_spans`; then cuBLAS by name;
     else other."""
+    hits = region_hits(events, kernels, fwd_tid)
+    out = []
+    for i, k in enumerate(kernels):
+        by_name = kernel_class(k["name"])
+        if by_name == "flash_attention":
+            out.append("flash forward")
+        else:
+            out.append(hits.get(i) or ("cuBLAS" if by_name == "matmul (cuBLAS)" else "other"))
+    return out
+
+
+def serve_step_classes(events: list, kernels: list, fwd_tid) -> list[str]:
+    """The class of each kernel of a serving step: its marked region (MoE,
+    Mamba scan) when the host call that launched it lies in one, else
+    :func:`kernel_class` of its name."""
+    hits = region_hits(events, kernels, fwd_tid)
+    return [hits.get(i) or kernel_class(k["name"]) for i, k in enumerate(kernels)]
+
+
+def region_hits(events: list, kernels: list, fwd_tid) -> dict:
+    """Index of each kernel launched inside one of :func:`region_spans`,
+    to that region's class."""
     launches = {e["args"]["correlation"]: (e["tid"], e["ts"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -131,14 +158,7 @@ def train_step_classes(events: list, kernels: list, fwd_tid) -> list[str]:
                 hits[what] = next((c for c, n in open_spans.items() if n), None)
             else:
                 open_spans[what] += 1 if kind == 0 else -1
-    out = []
-    for i, k in enumerate(kernels):
-        by_name = kernel_class(k["name"])
-        if by_name == "flash_attention":
-            out.append("flash forward")
-        else:
-            out.append(hits.get(i) or ("cuBLAS" if by_name == "matmul (cuBLAS)" else "other"))
-    return out
+    return hits
 
 
 def profile(torch, label: str, fn, out_dir: Path, keep: bool = True, classes=None) -> dict:
@@ -344,7 +364,60 @@ def vecsim_sweeps(torch, out_dir: Path) -> dict:
     return recs
 
 
-SECTIONS = ("train", "lm", "xlstm", "vecsim", "pair")
+def serve_steps(torch, out_dir: Path) -> dict:
+    """One step of each of ``chip_smoke.py`` phase 8's serving runs, each
+    after a warm-up, its kernels filed as MoE, Mamba scan, flash, decode
+    attention, cuBLAS and other: the zoo's qwen2-moe-a2.7b decode job
+    (batch 8 against 4096 slots), jamba-v0.1-52b's prefill (1 of 4
+    super-blocks, 1 x 8192) and decode step (batch 8 against 32768 slots),
+    and chameleon-34b's decode step (16 of 48 layers, batch 1 against 4112
+    slots)."""
+    import threading
+
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.models import model as tm
+
+    tid = threading.get_native_id()
+    recs = {}
+
+    def run(label, fn):
+        fn()                                                     # warm-up
+        recs[label] = profile(torch, label, fn, out_dir, keep=False,
+                              classes=lambda ev, ks: serve_step_classes(ev, ks, tid))
+
+    arch, shape_name, bdiv, sdiv = chip_smoke.MOE_JOB
+    stream = torch.cuda.current_stream()
+    tenant = chip_smoke.make_decode(torch, get_config(arch), 1.0, stream,
+                                    scaled_shape(SHAPES[shape_name], bdiv, sdiv))
+    run("moe_decode_step", lambda: tenant.step_fn(tenant.state))
+    del tenant
+    chip_smoke.free(torch)
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=chip_smoke.JAMBA_BLOCKS * full.attn_every)
+    params = tm.init_params(cfg, seed=16)
+    gen = torch.Generator("cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8192), generator=gen, device="cuda")
+    run("jamba_prefill", lambda: tm.prefill(params, tokens, cfg, 8192))
+    smax, B = SHAPES["decode_32k"].seq_len, chip_smoke.FAMILY_BATCH
+    cache = tm.init_cache(params, cfg, B, smax)
+    pos = torch.tensor(chip_smoke.ragged_starts(B, smax), dtype=torch.int32, device="cuda")
+    run("jamba_decode_step", lambda: tm.decode_step(params, cache, tokens[0, :B], pos, cfg))
+    del params, cache
+    chip_smoke.free(torch)
+
+    full = get_config("chameleon-34b")
+    cfg = full.replace(n_layers=chip_smoke.CHAMELEON_LAYERS)
+    params = tm.init_params(cfg, seed=18)
+    cache = tm.init_cache(params, cfg, 1, 4096 + chip_smoke.FAMILY_STEPS)
+    pos = torch.full((1,), 4096, dtype=torch.int32, device="cuda")
+    run("chameleon_decode_step", lambda: tm.decode_step(params, cache, tokens[0, :1], pos, cfg))
+    del params, cache
+    chip_smoke.free(torch)
+    return recs
+
+
+SECTIONS = ("train", "lm", "xlstm", "vecsim", "serve", "pair")
 
 
 def main() -> None:
@@ -377,6 +450,8 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "vecsim" in args.only:
         recs.update(vecsim_sweeps(torch, out_dir))
+    if "serve" in args.only:
+        recs.update(serve_steps(torch, out_dir))
     if "pair" not in args.only:
         chip_smoke.say(json.dumps({"card": card, "profile": recs}))
         return
