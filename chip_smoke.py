@@ -20,7 +20,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and f32), at a ragged 1000 x 4100 (bf16) and 1000 x 4101 (f32), whose d
    leaves a scalar head and tail beside the 16-byte vectors, and at
    4095 x 1024 (bf16), whose last block holds one row short; no path of the
-   package calls it, so its wrapper's own entry point is its path.
+   package calls it, so its wrapper's own entry point is its path.  Both
+   attention kernels also run at heads of 64 (seamless-m4t's), bf16 and
+   f32: flash at the encoder's 16 x 4096 x 4096 (16/16 heads, non-causal)
+   and at 512 queries against 4096 keys (timed), and at the 128-row tile
+   edges; decode at (16, 8192, 16, 64) with a row of length 0 and at (16,
+   4096, 16, 64), both at ragged lengths and timed.
 2. The RL co-scheduler: the trained agent of ``tests/golden`` schedules the
    paper queues on the card; its greedy actions must equal the same agent's
    on the CPU, and every schedule must satisfy the problem's constraints.
@@ -109,13 +114,33 @@ Phases, each of which stops the run with a non-zero exit on failure:
    4095 must give the last logits of the prefill of all 4096 within 1e-4
    in f32 (the bf16 figure is printed beside the same weights' without
    the QK-norm: two orders of bf16 rounding).
+9. Serving the audio (encoder-decoder) family.  (a) seamless-m4t-large-v2's
+   smoke config at the published head size of 64, f32 with TF32 off, card
+   against CPU: the loss within 1e-5 relative, the prefill step's cross K/V
+   and 8 ``decode_step``s at ragged enc_lens within 1e-4 a row.  (b) The
+   zoo's job ``("seamless-m4t-large-v2", "decode_32k", 8, 4)`` at its
+   published width and depth (24 + 24 layers): ``make_prefill_step`` on 16
+   x 4096 frames at ragged enc_lens (24 flash launches, its ms), then the
+   decode tenant (batch 16 against 8192 self slots at ragged lengths, share
+   0.25, 8 steps) beside phase 3's llama3-8b prefill tenant (share 0.75, 12
+   steps) on two streams, then each alone: it fails unless the co-run
+   launched 32 flash kernels a prefill step and 48 decode kernels a decode
+   step and each tenant's co-run logits equal its solo logits bit for bit;
+   then one decode step's ms, device launches and idle share.  (c)
+   ``repro_torch.launch.serve`` at seamless full (batch 4, 32 steps): 24 x
+   2 x 32 decode launches and finite logits.  (d) Teacher forcing at the
+   full width and depth: the prefill step on 2 x 4096 frames, all valid,
+   then 64 decode steps, each step's logits against ``forward_train``'s
+   within 1e-4 a row in f32 (the bf16 figure printed only).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import subprocess
@@ -295,15 +320,18 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, batch=1, ca
     rec = compare(torch, out, ref, name, what)
     if timed:
         esize = q.element_size()
-        pairs = float(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum())   # visible (q, k)
+        # visible (q, k) pairs of one sequence and head
+        pairs = (float(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum()) if causal
+                 else float(sq * skv))
         rec["bound_ms"], rec["bound_by"] = bound(
-            (2 * sq * hq * d + 2 * skv * hkv * d) * esize, 4.0 * hq * d * pairs, name)
-        rec["ms"] = time_graph_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+            batch * (2 * sq * hq * d + 2 * skv * hkv * d) * esize, 4.0 * batch * hq * d * pairs,
+            name)
+        rec["ms"] = time_graph_ms(torch, lambda: flash_attention(q, k, v, causal=causal),
                                   10 if name == "bfloat16" else 2)
-        rec["plain_ms"] = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal=True), 1)
+        rec["plain_ms"] = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal=causal), 1)
         qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         rec["library_ms"] = time_graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+            qs, ks, vs, is_causal=causal, enable_gqa=True), 10)
     say(f"[1] {what} D={d}: {show(rec)} row_tol={ROW_TOL[name]:g}")
     return rec
 
@@ -373,7 +401,45 @@ def phase_kernels(torch, card):
     if rmsnorm.launches == 0:
         fail("the rmsnorm wrapper launched no kernel")
     torch.cuda.empty_cache()
+    kernels_d64(torch, recs)
     return recs
+
+
+# Heads of 64: seamless-m4t-large-v2's encoder (16 x 4096 frames, 16/16
+# heads), its cross-attention in teacher forcing (512 tokens against 4096
+# frames) and its two decode attentions (16 sequences against the 8192-slot
+# self cache and the 4096-frame cross K/V, at ragged lengths)
+SEAMLESS_HEADS = 16
+D64_SELF_LENGTHS = [8192, 0, 8191, 1, 4097, 33, 6000, 7777, 123, 2500, 8000, 31, 5555, 4096,
+                    3333, 1000]
+D64_CROSS_LENGTHS = [4096, 4095, 3001, 2048, 1, 17, 3999, 1234, 2222, 4000, 512, 777, 3500,
+                     100, 2900, 4064]
+
+
+def kernels_d64(torch, recs) -> None:
+    """Phase 1 at D = 64, bf16 and f32; the bf16 timings of the encoder's
+    flash shape and of the cross-attention decode shape go into ``recs``
+    under ``"d64"`` (the decode self-attention shape's under
+    ``"d64_self"``)."""
+    h = SEAMLESS_HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        rec = flash_case(torch, dtype, sq=4096, skv=4096, hq=h, hkv=h, d=64, batch=16,
+                         causal=False)
+        if dtype == torch.bfloat16:
+            recs["flash_attention"]["d64"] = rec
+        flash_case(torch, dtype, sq=512, skv=4096, hq=h, hkv=h, d=64, batch=2, causal=False)
+        free(torch)
+    for sq, skv in ((127, 1000), (1000, 127), (129, 129)):
+        for causal in (True, False):
+            flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=8, hkv=2, d=64, batch=2,
+                       causal=causal, timed=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        self_rec = decode_case(torch, dtype, D64_SELF_LENGTHS, smax=8192, hq=h, hkv=h, d=64)
+        cross_rec = decode_case(torch, dtype, D64_CROSS_LENGTHS, smax=4096, hq=h, hkv=h, d=64)
+        if dtype == torch.bfloat16:
+            recs["decode_attention"]["d64"] = cross_rec
+            recs["decode_attention"]["d64_self"] = self_rec
+    free(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1485,9 +1551,11 @@ def grow_cache(cache: dict, smax: int) -> dict:
 
 
 def timed_steps(torch, n: int, step) -> list[float]:
-    """``step()`` ``n`` times, each synchronized: its ms."""
+    """``step()`` ``n`` times, each synchronized: its ms.  The work queued
+    before (a warm-up step, the set-up) is waited for first."""
     ms = []
     for _ in range(n):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1855,6 +1923,304 @@ def phase_families(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: serving the audio (encoder-decoder) family
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_JOB = (SEAMLESS, "decode_32k", 8, 4)   # the zoo's job: batch 16, 8192 self slots
+SEAMLESS_SEED = 41
+SEAMLESS_SERVE_ARGV = ["--arch", SEAMLESS, "--scale", "full", "--batch", "4", "--gen", "32"]
+TF_STEPS, TF_BATCH = 64, 2          # (d): tokens decoded against teacher forcing
+
+
+def seamless_job():
+    """The zoo's seamless decode job: the full config and its shape (batch
+    16 against 8192 self-attention slots; the encoder's 4096 frames are
+    ``cfg.enc_len``)."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+
+    arch, shape_name, bdiv, sdiv = SEAMLESS_JOB
+    return get_config(arch), scaled_shape(SHAPES[shape_name], bdiv, sdiv)
+
+
+def phase_seamless_reference(torch, card):
+    """(a) The seamless smoke config at the published head size of 64 (the
+    smoke config's 16 is one the kernels do not take), f32 with TF32 off, on
+    the card against the CPU: the loss, the prefill step's cross K/V and 8
+    ``decode_step``s at ragged enc_lens."""
+    from repro_torch.configs import SHAPES, get_smoke_config, scaled_shape
+    from repro_torch.models import model as tm
+    from repro_torch.optim import tree_map
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    cfg = get_smoke_config(SEAMLESS).replace(d_head=64, dtype="float32")
+    cpu = tm.init_params(cfg, seed=42, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    gen = torch.Generator().manual_seed(43)
+    B, S, Se, steps = 2, 24, 40, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    frames = torch.randn((B, Se, cfg.d_model), generator=gen)
+    labels = torch.roll(tokens, -1, 1)
+    labels[:, -1] = -1
+    enc_lens = torch.tensor([Se, 23], dtype=torch.int32)
+    shape = scaled_shape(SHAPES["decode_32k"], 128 // B, 32768 // S)      # B x S self slots
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        with torch.no_grad():
+            loss, _ = tm.loss_fn(params, {"tokens": tokens.to(dev), "labels": labels.to(dev),
+                                          "frames": frames.to(dev)}, cfg)
+        cache = make_prefill_step(cfg, shape, device=dev)(params, frames.to(dev),
+                                                          enc_lens.to(dev))
+        step, logits = make_decode_step(cfg, B, S, device=dev), []
+        cross = {k: cache["cross"][k].cpu() for k in ("k", "v")}
+        for t in range(steps):
+            pos = torch.full((B,), t, dtype=torch.int32, device=dev)
+            lg, cache = step(params, cache, tokens[:, t].to(dev), pos)
+            logits.append(lg.cpu())
+        out[dev] = (loss.item(), cross, torch.stack(logits, 1))
+    (lc, xc, dc), (lg, xg, dg) = out["cpu"], out["cuda"]
+    x_err = max(row_rel_err(torch, xg[k], xc[k]) for k in ("k", "v"))
+    d_err = row_rel_err(torch, dg, dc)
+    say(f"[9] (a) {cfg.name} at D=64 (f32, TF32 off, {B} x {S} tokens, {Se} frames, enc_lens "
+        f"{enc_lens.tolist()}): card == CPU: loss {lg:.6f} vs {lc:.6f} (bound {LM_LOSS_TOL:g} "
+        f"relative); cross K/V row relative {x_err:.2e}, {steps} decode steps' logits "
+        f"{d_err:.2e} (bound {ROW_TOL['float32']:g})  ({card})")
+    if not (rel_close(lg, lc, LM_LOSS_TOL) and x_err <= ROW_TOL["float32"]
+            and d_err <= ROW_TOL["float32"]):
+        fail(f"{cfg.name}: the card differs from the CPU")
+
+
+def seamless_tenant(torch, stream, report: dict | None = None):
+    """The zoo's seamless decode job as a tenant on ``stream``: weights from
+    a seed, the prefill step (the encoder pass and the cross K/V) on 16 x
+    4096 frames at ragged enc_lens, the self cache filled as phase 3 fills
+    its cache, batch 16 at ragged lengths.  With ``report``, the prefill
+    step is first run once to warm up, then once timed with its launches
+    counted (into ``report``)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.multitenant import Tenant
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    cfg, dec = seamless_job()
+    B, smax = dec.global_batch, dec.seq_len
+    with torch.cuda.stream(stream):
+        params = init_params(cfg, seed=SEAMLESS_SEED)
+        gen = torch.Generator("cuda").manual_seed(SEAMLESS_SEED + 1)
+        frames = torch.randn((B, cfg.enc_len, cfg.d_model), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        enc_lens = torch.tensor(D64_CROSS_LENGTHS, dtype=torch.int32, device="cuda")
+        prefill = make_prefill_step(cfg, dec)
+        if report is not None:
+            prefill(params, frames, enc_lens)                     # warm-up
+            reset_launches()
+            got = {}
+            report["ms"] = timed_steps(torch, 1, lambda: got.update(c=prefill(params, frames,
+                                                                              enc_lens)))[0]
+            report["launches"] = read_launches()
+            cache = got.pop("c")
+        else:
+            cache = prefill(params, frames, enc_lens)
+        for i in range(cfg.n_layers):
+            cache["self"]["k"][i].normal_(generator=gen)
+            cache["self"]["v"][i].normal_(generator=gen)
+        start = ragged_starts(B, smax)
+        if max(start) + DECODE_STEPS > smax:
+            fail("decode would write past its cache")
+        state0 = (torch.randint(0, cfg.vocab_size, (B,), generator=gen, device="cuda"),
+                  torch.tensor(start, dtype=torch.int32, device="cuda"), None)
+    step = make_decode_step(cfg, B, smax)
+
+    def decode_fn(state):
+        tok, pos, _ = state
+        logits, _ = step(params, cache, tok, pos)
+        return logits.argmax(dim=-1), pos + 1, logits
+
+    return Tenant(f"{cfg.name}:{dec.name}", decode_fn, state0, SHARES["decode"], stream=stream)
+
+
+def phase_seamless_pair(torch, card):
+    """(b) The prefill step at the zoo job's size, then the decode tenant
+    beside phase 3's llama3-8b prefill tenant on two streams, then each
+    alone; then one decode step profiled."""
+    from repro_torch.models.model import count_params_analytic
+    from repro_torch.runtime.multitenant import Tenant
+
+    cfg, dec = seamless_job()
+    free(torch)
+    say(f"[9] (b) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff} (GELU), vocab {cfg.vocab_size}, {cfg.n_enc_layers} encoder "
+        f"+ {cfg.n_layers} decoder layers (no cut), {count_params_analytic(cfg) / 1e9:.3f} B "
+        f"params, {cfg.dtype}; the zoo's job {SEAMLESS_JOB}: batch {dec.global_batch} against "
+        f"{dec.seq_len} self slots and {cfg.enc_len} frames at enc_lens {D64_CROSS_LENGTHS}")
+    report = {}
+    stream = torch.cuda.Stream()
+    tenant = seamless_tenant(torch, stream, report)
+    pre = report["launches"]
+    say(f"[9] (b) prefill step (encoder pass + cross K/V) on {dec.global_batch} x {cfg.enc_len} "
+        f"frames: {report['ms']:.1f} ms (synchronized), kernel launches {pre} (expected "
+        f"{cfg.n_enc_layers} flash)  ({card})")
+    if pre != {"flash_attention": cfg.n_enc_layers, "decode_attention": 0, "rmsnorm": 0}:
+        fail(f"the seamless prefill step launched {pre}")
+    del tenant
+
+    steps = {"prefill": PREFILL_STEPS, "decode": DECODE_STEPS}
+    # llama3-8b's 32 layers launch flash once each a prefill step; seamless's
+    # decoder layers launch decode attention twice each (self and cross)
+    expect = {"flash_attention": 32 * PREFILL_STEPS,
+              "decode_attention": 2 * cfg.n_layers * DECODE_STEPS, "rmsnorm": 0}
+
+    def prefill_tenant(stream):
+        p_cfg, pre_shape, fn = make_prefill(torch, stream)
+        with torch.cuda.stream(stream):
+            fn(None)                                     # warm-up
+        return Tenant(f"{p_cfg.name}:{pre_shape.name}", fn, None, SHARES["prefill"],
+                      stream=stream)
+
+    def decode_tenant(stream):
+        t = seamless_tenant(torch, stream)
+        with torch.cuda.stream(stream):
+            t.step_fn(t.state)                           # warm-up; the state is kept
+        return t
+
+    makers = {"prefill": prefill_tenant, "decode": decode_tenant}
+
+    def run(roles):
+        free(torch)
+        return run_group(torch, {r: makers[r] for r in roles}, steps,
+                         lambda r, t: t.state[2] if r == "decode" else t.state)
+
+    names, finish, co, quanta, launches, peak = run(("prefill", "decode"))
+    say(f"[9] (b) co-run on two streams, quanta {quanta}, kernel launches {launches} (expected "
+        f"{expect}), peak device memory {peak:.1f} GiB  ({card})")
+    if launches != expect:
+        fail(f"the seamless pair's co-run launched {launches} kernels, expected {expect}")
+    solo, solo_out = {}, {}
+    for role in ("prefill", "decode"):
+        _, fin, outputs, _, _, solo_peak = run((role,))
+        solo[role], solo_out[role] = fin[role], outputs[role]
+        say(f"[9] (b) {names[role]} alone: {solo[role]:.3f} s ({1e3 * solo[role] / steps[role]:.1f}"
+            f" ms a step), peak device memory {solo_peak:.1f} GiB  ({card})")
+    for role, name in names.items():
+        say(f"[9] (b) {name}: co-run finish {finish[role]:.3f} s, solo {solo[role]:.3f} s, "
+            f"slowdown {finish[role] / solo[role]:.3f}  ({card})")
+    makespan, ts = max(finish.values()), sum(solo.values())
+    say(f"[9] (b) co-run makespan {makespan:.3f} s / time sharing {ts:.3f} s = "
+        f"{makespan / ts:.3f}  ({card})")
+    for role, name in names.items():
+        got, ref = co[role], solo_out[role]
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name}: logits of shape {tuple(got.shape)} or non-finite")
+        say(f"[9] (b) {name}: logits {tuple(got.shape)} finite; co-run == solo bit for bit: "
+            f"{torch.equal(got, ref)} (max abs diff {(got - ref).abs().max().item():.3e})")
+        if not torch.equal(got, ref):
+            fail(f"{name}: co-run logits differ from the solo run's")
+
+    free(torch)
+    stream = torch.cuda.Stream()
+    tenant = seamless_tenant(torch, stream)
+    state = tenant.state
+    with torch.cuda.stream(stream):
+        ms = timed_steps(torch, DECODE_STEPS, lambda: tenant.step_fn(state))
+        n, busy = device_launches(torch, lambda: tenant.step_fn(state))
+    step_ms = median(ms)
+    say(f"[9] (b) {names['decode']} alone, one step at a time: median {step_ms:.2f} ms a step "
+        f"(synchronized; {', '.join(f'{x:.1f}' for x in ms)}), {n} device launches and "
+        f"{busy:.2f} ms of device time a step (profiled): idle share {1 - busy / step_ms:.3f}  "
+        f"({card})")
+    return {k: pre[k] + launches[k] for k in launches}
+
+
+def phase_seamless_serve(torch, card):
+    """(c) ``launch/serve.py`` at seamless-m4t-large-v2's full width and depth."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import count_params_analytic
+
+    cfg, _ = seamless_job()
+    gen = int(SEAMLESS_SERVE_ARGV[SEAMLESS_SERVE_ARGV.index("--gen") + 1])
+    expect = {"flash_attention": 0, "decode_attention": 2 * cfg.n_layers * gen, "rmsnorm": 0}
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    say(f"[9] (c) python -m repro_torch.launch.serve {' '.join(SEAMLESS_SERVE_ARGV)}: {cfg.name}, "
+        f"{cfg.n_enc_layers} + {cfg.n_layers} layers, {count_params_analytic(cfg) / 1e9:.3f} B "
+        f"params, {cfg.dtype}, cross K/V of {cfg.enc_len} zero frames:")
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        logits = serve.main(SEAMLESS_SERVE_ARGV)
+    launches = read_launches()
+    say(f"[9] (c) {printed.getvalue().strip()}  ({card})")
+    say(f"[9] (c) {time.perf_counter() - t0:.1f} s with the weights' init; kernel launches "
+        f"{launches} (expected {expect}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  ({card})")
+    if launches != expect:
+        fail(f"serve launched {launches} kernels, expected {expect}")
+    if not torch.isfinite(logits).all():
+        fail("serve: the last logits are not finite")
+    return launches
+
+
+def teacher_forcing_err(torch, cfg) -> float:
+    """Prefill (the encoder pass) on TF_BATCH x enc_len frames, all valid,
+    then decode tokens 0 .. TF_STEPS - 1 one at a time: the worst row
+    relative error of a step's logits against ``forward_train``'s at that
+    position."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import model as tm
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    params = tm.init_params(cfg, seed=SEAMLESS_SEED)
+    gen = torch.Generator("cuda").manual_seed(SEAMLESS_SEED + 2)
+    B, Se = TF_BATCH, cfg.enc_len
+    frames = torch.randn((B, Se, cfg.d_model), generator=gen, device="cuda").to(
+        params["emb"].dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (B, TF_STEPS), generator=gen, device="cuda")
+    with torch.no_grad():
+        ref, _ = tm.forward_train(params, {"tokens": tokens, "frames": frames}, cfg)
+    shape = ShapeConfig("teacher_forcing", TF_STEPS, B, "decode")
+    cache = make_prefill_step(cfg, shape)(params, frames,
+                                          torch.full((B,), Se, dtype=torch.int32, device="cuda"))
+    step, worst = make_decode_step(cfg, B, TF_STEPS), 0.0
+    for t in range(TF_STEPS):
+        logits, cache = step(params, cache, tokens[:, t],
+                             torch.full((B,), t, dtype=torch.int32, device="cuda"))
+        worst = max(worst, row_rel_err(torch, logits, ref[:, t]))
+    return worst
+
+
+def phase_seamless_teacher_forcing(torch, card):
+    """(d) Teacher forcing at the full width and depth: f32 (the D = 64 f32
+    kernels), bounded; bf16 (the same draws, rounded), printed only."""
+    cfg, _ = seamless_job()
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        errs[dtype] = teacher_forcing_err(torch, cfg.replace(dtype=dtype))
+        free(torch)
+    say(f"[9] (d) teacher forcing at {cfg.n_enc_layers} + {cfg.n_layers} layers, "
+        f"{TF_BATCH} x {cfg.enc_len} frames (enc_lens {cfg.enc_len}): prefill + {TF_STEPS} decode "
+        f"steps against forward_train, logits row relative f32 {errs['float32']:.3e} (bound "
+        f"{ROW_TOL['float32']:g}), bf16 {errs['bfloat16']:.3e} (not bounded: two orders of bf16 "
+        f"rounding); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
+        f"({card})")
+    if not errs["float32"] <= ROW_TOL["float32"]:
+        fail("seamless: decode after the prefill step differs from teacher forcing in f32")
+
+
+def phase_audio(torch, card):
+    """Phase 9; returns the kernel launches of its main paths (b) and (c)."""
+    t_phase = time.perf_counter()
+    phase_seamless_reference(torch, card)
+    runs = [phase_seamless_pair(torch, card), phase_seamless_serve(torch, card)]
+    phase_seamless_teacher_forcing(torch, card)
+    free(torch)
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    say(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s, launches on its main paths "
+        f"{launches}  ({card})")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1873,11 +2239,12 @@ def main() -> None:
     trace, heap = phase_online(torch, card, agent)
     phase_vecsim(torch, card, agent, trace, heap)
     families = phase_families(torch, card)
+    audio = phase_audio(torch, card)
     # launches on the main paths: the co-run pair, training the co-scheduler,
-    # the train pair, step 4's pair and phase 8's serving runs (no path of
-    # the package calls rmsnorm)
+    # the train pair, step 4's pair and phases 8 and 9's serving runs (no
+    # path of the package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
-                for name in pair}
+                + audio[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
@@ -1890,7 +2257,8 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        **{key: r[key] for key in ("d64", "d64_self") if key in r}})
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

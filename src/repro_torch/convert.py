@@ -4,7 +4,9 @@ Both packages keep parameters as nested dicts with the same keys, and the
 layers stacked on a leading axis (the reference's vmapped init: the dense,
 MoE and vlm models' ``layers/...``, the Jamba model's
 ``blocks/sub{i}/...``, the xLSTM model's ``pairs/mlstm/...`` and
-``pairs/slstm/...``), so conversion is a leaf-by-leaf copy; the same
+``pairs/slstm/...``, the encoder-decoder's ``enc_layers/...``,
+``dec_layers/...`` (its ``xattn`` without biases) and ``enc_norm``), so
+conversion is a leaf-by-leaf copy; the same
 holds for the model's AdamW state.  A DQN
 agent carries its online and target parameters and its Adam state
 (``m``, ``v``, ``t``), so training continues across the packages.  Inputs

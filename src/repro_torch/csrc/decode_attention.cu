@@ -42,6 +42,17 @@
 //     -inf and their V entries taken as 0 (the stage may hold another row's
 //     data there), so a row of length 0, whose pairs have no tile, gives 0.
 //
+// Heads of 64 (seamless-m4t's, whose cross-attention decode reads the
+// encoder's K/V the same way) take the same kernels, templates on D: a row
+// is 128 bytes, 144 apart in shared memory (144 = 128 + 16, so the eight
+// rows one ldmatrix reads still start 16 bytes apart modulo 128 and fall in
+// distinct banks), S^T = K Q^T takes 4 k-steps of 16, O^T is 64 x 8 (4 m16
+// tiles of ldmatrix.trans), and the combine pass runs 64 threads.  The
+// bound is bytes as at D = 128, but each copy moves half as many bytes
+// (one 128-byte row a lane and tile) for the same barrier and softmax
+// work, so more copies must be in flight: the ring is 27 KB, and the
+// wrapper sizes the grid for 8 blocks an SM instead of 4.
+//
 // float32 takes the CUDA cores (the tensor cores would round to TF32):
 // each sequence is cut into chunks of 8 tiles of 32 keys, a block per chunk
 // over the shared SIMT tile routine, chunks past the length exit at once,
@@ -58,16 +69,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 // bfloat16: bulk-copy ring, mma.sync
 // ---------------------------------------------------------------------------
 
-constexpr int kD = 128;                          // head size
 constexpr int kTK = 32;                          // keys per tile
 constexpr int kStages = 3;                       // ring depth
-constexpr int kRowBytes = kD * 2;                // one K or V row in device memory
-constexpr int kRowPitch = kRowBytes + 16;        // ... and in shared memory
-constexpr int kTileBytes = kTK * kRowPitch;
-constexpr int kStageBytes = 2 * kTileBytes;      // K tile, then V tile
-constexpr int kBarOffset = kStages * kStageBytes;
-constexpr int kSmemBytes = kBarOffset + 8 * 2 * kStages;
 constexpr int kThreads = 64;                     // warp 0 produces, warp 1 consumes
+
+// Shared-memory layout for heads of D (64 or 128): kStages stages of a K
+// tile and a V tile, then the barriers.
+template <int D>
+struct Ring {
+  static constexpr int kRowBytes = D * 2;        // one K or V row in device memory
+  static constexpr int kRowPitch = kRowBytes + 16;   // ... and in shared memory
+  static constexpr int kTileBytes = kTK * kRowPitch;
+  static constexpr int kStageBytes = 2 * kTileBytes;   // K tile, then V tile
+  static constexpr int kBarOffset = kStages * kStageBytes;
+  static constexpr int kSmemBytes = kBarOffset + 8 * 2 * kStages;
+};
 // The combine pass is launched as a programmatic dependent of the split
 // kernel: its blocks start while the split runs and wait for it at
 // griddepcontrol.wait, so that its launch and prologue overlap the split.
@@ -157,17 +173,21 @@ __device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
   return y;
 }
 
-// grid n_blocks, 64 threads, kSmemBytes of dynamic shared memory.
+// grid n_blocks, 64 threads, Ring<D>::kSmemBytes of dynamic shared memory.
 // q (B, Hq, D), k/v (B, Smax, Hkv, D).  Writes the partial of every segment
 // of its share to slot blockIdx.x + pair.
+template <int D>
 __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int B, int Hq, int Hkv, int Smax,
     int g, float qk_scale_log2) {
+  constexpr int kRowBytes = Ring<D>::kRowBytes, kRowPitch = Ring<D>::kRowPitch;
+  constexpr int kTileBytes = Ring<D>::kTileBytes, kStageBytes = Ring<D>::kStageBytes;
+  constexpr int kMB = D / 16;   // 16-row blocks of O^T, and 16-column steps of D
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  const uint32_t full = base + kBarOffset, empty = full + 8 * kStages;
+  const uint32_t full = base + Ring<D>::kBarOffset, empty = full + 8 * kStages;
   const int lane = threadIdx.x % 32;
 
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");   // the combine may start
@@ -198,8 +218,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
       __syncwarp();
       if (lane < nvalid) {
         const long row = ((long)w.b * Smax + w.j * kTK + lane) * Hkv + w.h;
-        bulk_load(k_dst + lane * kRowPitch, k + row * kD, kRowBytes, full + 8 * s);
-        bulk_load(v_dst + lane * kRowPitch, v + row * kD, kRowBytes, full + 8 * s);
+        bulk_load(k_dst + lane * kRowPitch, k + row * D, kRowBytes, full + 8 * s);
+        bulk_load(v_dst + lane * kRowPitch, v + row * D, kRowBytes, full + 8 * s);
       }
       if (it + 1 < n_it) walk_next(w, lengths, Hkv, Smax);
     }
@@ -210,9 +230,9 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
   // lane / 4 and lane / 4 + 8 of each 16-row block, columns (query heads)
   // 2 c and 2 c + 1 with c = lane % 4.
   const int c = lane % 4, r8 = lane / 4;
-  float acc[8][4];            // O^T: d = 16 m + r8 (+ 8), heads 2 c (+ 1)
+  float acc[kMB][4];          // O^T: d = 16 m + r8 (+ 8), heads 2 c (+ 1)
   float m_run[2], l_run[2];   // heads 2 c and 2 c + 1
-  uint32_t qf[8][2];          // Q^T as B fragments: k-step kk, head r8
+  uint32_t qf[kMB][2];        // Q^T as B fragments: k-step kk, head r8
   int seg_b = -1, seg_h = -1;
 
   // one pair's partial: slot i + p
@@ -226,9 +246,9 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
       const int n = 2 * c + hh;
       if (n < g) {
         const long slot = (long)i + (long)seg_b * Hkv + seg_h;
-        float* pa = part_acc + (slot * g + n) * kD;
+        float* pa = part_acc + (slot * g + n) * D;
 #pragma unroll
-        for (int mb = 0; mb < 8; ++mb) {
+        for (int mb = 0; mb < kMB; ++mb) {
           pa[16 * mb + r8] = acc[mb][hh];
           pa[16 * mb + r8 + 8] = acc[mb][hh + 2];
         }
@@ -246,15 +266,15 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
       seg_b = w.b;
       seg_h = w.h;
 #pragma unroll
-      for (int mb = 0; mb < 8; ++mb)
+      for (int mb = 0; mb < kMB; ++mb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mb][e] = 0.f;
       m_run[0] = m_run[1] = -INFINITY;
       l_run[0] = l_run[1] = 0.f;
       const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
-          q + ((long)w.b * Hq + (long)w.h * g + r8) * kD);
+          q + ((long)w.b * Hq + (long)w.h * g + r8) * D);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kMB; ++kk) {
         qf[kk][0] = r8 < g ? __ldg(qrow + 8 * kk + c) : 0u;
         qf[kk][1] = r8 < g ? __ldg(qrow + 8 * kk + 4 + c) : 0u;
       }
@@ -265,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
     const int nvalid = min(kTK, w.len - k0);
     mbar_wait(full + 8 * s, (it / kStages) & 1);
 
-    // S^T = K Q^T: two 16-key blocks, eight 16-column steps of D
+    // S^T = K Q^T: two 16-key blocks, D / 16 16-column steps of D
     float sc[2][4];
 #pragma unroll
     for (int mb = 0; mb < 2; ++mb)
@@ -274,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
     // ldmatrix x4 of A: lane l gives row (l % 8) + 8 ((l / 8) % 2), column chunk l / 16
     const uint32_t k_lane = k_tile + ((lane % 8) + 8 * ((lane / 8) % 2)) * kRowPitch + (lane / 16) * 16;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kMB; ++kk) {
 #pragma unroll
       for (int mb = 0; mb < 2; ++mb) {
         uint32_t a[4];
@@ -316,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
       l_run[hh] = l_run[hh] * alpha[hh] + sum;
     }
 #pragma unroll
-    for (int mb = 0; mb < 8; ++mb) {
+    for (int mb = 0; mb < kMB; ++mb) {
       acc[mb][0] *= alpha[0];
       acc[mb][1] *= alpha[1];
       acc[mb][2] *= alpha[0];
@@ -331,14 +351,14 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
       pb[ks][1] = movmatrix_trans(pack_bf16x2(sc[ks][2], sc[ks][3]));
     }
 
-    // O^T += V^T P^T: eight 16-row blocks of D, two 16-key steps.  ldmatrix
+    // O^T += V^T P^T: D / 16 16-row blocks of D, two 16-key steps.  ldmatrix
     // x4 trans of A: lane l gives key row (l % 8) + 8 (l / 16), d chunk (l / 8) % 2.
     const uint32_t v_lane = v_tile + ((lane % 8) + 8 * (lane / 16)) * kRowPitch + ((lane / 8) % 2) * 16;
     const bool partial = nvalid < kTK;
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
 #pragma unroll
-      for (int mb = 0; mb < 8; ++mb) {
+      for (int mb = 0; mb < kMB; ++mb) {
         uint32_t a[4];
         ldsm_x4_trans(a, v_lane + 16 * ks * kRowPitch + mb * 32);
         if (partial) {   // keys past the length: the stage holds stale rows there
@@ -358,6 +378,7 @@ __global__ void __launch_bounds__(kThreads) decode_split_bf16_kernel(
   flush();
 }
 
+template <int NT>
 __device__ __forceinline__ float block_reduce(float x, float* scratch, bool is_max) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -369,7 +390,7 @@ __device__ __forceinline__ float block_reduce(float x, float* scratch, bool is_m
   if (threadIdx.x % 32 == 0) scratch[warp] = x;
   __syncthreads();
   x = scratch[0];
-  for (int w = 1; w < kD / 32; ++w) x = is_max ? fmaxf(x, scratch[w]) : x + scratch[w];
+  for (int w = 1; w < NT / 32; ++w) x = is_max ? fmaxf(x, scratch[w]) : x + scratch[w];
   return x;
 }
 
@@ -378,16 +399,17 @@ __device__ __forceinline__ float block_reduce(float x, float* scratch, bool is_m
 // pair's keys.  The threads first take one partial each (its weight
 // 2^(m - M) into shared memory), then sum the weighted accumulators of all
 // partials, column d by thread d, with independent loads.
-__global__ void __launch_bounds__(kD) decode_combine_bf16_kernel(
+template <int D>
+__global__ void __launch_bounds__(D) decode_combine_bf16_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv,
     int Smax, int g, int n_blocks) {
   extern __shared__ float wgt[];
-  __shared__ float scratch[kD / 32];
+  __shared__ float scratch[D / 32];
   const int p = blockIdx.x, r = blockIdx.y, b = p / Hkv, h = p % Hkv;
   const int d = threadIdx.x;
   const int ntiles = (valid_len(lengths, b, Smax) + kTK - 1) / kTK;
-  __nv_bfloat16* ob = out + ((long)b * Hq + (long)h * g + r) * kD + d;
+  __nv_bfloat16* ob = out + ((long)b * Hq + (long)h * g + r) * D + d;
   if (ntiles == 0) {   // length 0: no block saw a key
     *ob = __float2bfloat16(0.f);
     return;
@@ -403,11 +425,11 @@ __global__ void __launch_bounds__(kD) decode_combine_bf16_kernel(
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // the split kernel's partials are written
 
   float m = -INFINITY;
-  for (long i = i_lo + d; i <= i_hi; i += kD)
+  for (long i = i_lo + d; i <= i_hi; i += D)
     if (!empty_share(i)) m = fmaxf(m, part_ml[((i + p) * g + r) * 2]);
-  const float M = block_reduce(m, scratch, true);
+  const float M = block_reduce<D>(m, scratch, true);
   float l = 0.f;
-  for (long i = i_lo + d; i <= i_hi; i += kD) {
+  for (long i = i_lo + d; i <= i_hi; i += D) {
     float w = 0.f;
     if (!empty_share(i)) {
       const long slot = (i + p) * g + r;
@@ -416,24 +438,26 @@ __global__ void __launch_bounds__(kD) decode_combine_bf16_kernel(
     }
     wgt[i - i_lo] = w;
   }
-  const float L = block_reduce(l, scratch, false);   // its barriers publish wgt
+  const float L = block_reduce<D>(l, scratch, false);   // its barriers publish wgt
   float A = 0.f;
 #pragma unroll 4
   for (long i = i_lo; i <= i_hi; ++i) {
     const float w = wgt[i - i_lo];
-    if (w != 0.f) A = fmaf(w, part_acc[((i + p) * g + r) * kD + d], A);
+    if (w != 0.f) A = fmaf(w, part_acc[((i + p) * g + r) * D + d], A);
   }
   *ob = __float2bfloat16(L > 0.f ? A / L : 0.f);
 }
 
+template <int D>
 static int launch_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
                        float* part_acc, float* part_ml, int B, int Hq, int Hkv, int Smax,
                        int n_blocks, float scale, cudaStream_t stream) {
   const int g = Hq / Hkv;
-  cudaError_t err = cudaFuncSetAttribute(decode_split_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  constexpr int smem = Ring<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(decode_split_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  decode_split_bf16_kernel<<<n_blocks, kThreads, kSmemBytes, stream>>>(
+  decode_split_bf16_kernel<D><<<n_blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lengths, part_acc, part_ml, B, Hq, Hkv, Smax, g,
       scale * kLog2e);
@@ -444,12 +468,12 @@ static int launch_bf16(const void* q, const void* k, const void* v, const int* l
   attr.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * Hkv, g);
-  cfg.blockDim = dim3(kD);
+  cfg.blockDim = dim3(D);
   cfg.dynamicSmemBytes = 4 * n_blocks;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = kDependentLaunch ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, decode_combine_bf16_kernel, (const float*)part_acc,
+  return (int)cudaLaunchKernelEx(&cfg, decode_combine_bf16_kernel<D>, (const float*)part_acc,
                                  (const float*)part_ml, lengths,
                                  static_cast<__nv_bfloat16*>(out), B, Hq, Hkv, Smax, g, n_blocks);
 }
@@ -549,7 +573,7 @@ static int launch_f32(const void* q, const void* k, const void* v, const int* le
 
 // q (B, Hq, D); k, v (B, Smax, Hkv, D); lengths (B,) int32; out (B, Hq, D);
 // all contiguous, on one device, q, k and v on 16-byte boundaries; D = 128
-// (llama3-8b's heads).  dtype 0 = bfloat16: n_split is the split kernel's
+// (llama3-8b's heads) or 64 (seamless-m4t's).  dtype 0 = bfloat16: n_split is the split kernel's
 // grid and chunk is ignored; part_acc holds (n_split + B*Hkv)*g*D floats,
 // part_ml (n_split + B*Hkv)*g*2.  dtype 1 = float32: n_split chunks of
 // ``chunk`` keys per sequence; part_acc holds B*Hkv*n_split*g*D floats,
@@ -565,11 +589,17 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
       (dtype == 0 && n_split > 8192))   // the bf16 combine keeps a weight a block
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == kD)
-    return launch_bf16(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split,
-                       scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_bf16<128>(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split,
+                            scale, s);
+  if (dtype == 0 && D == 64)
+    return launch_bf16<64>(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split,
+                           scale, s);
   if (dtype == 1 && D == 128)
     return launch_f32<128>(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split,
                            chunk, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_f32<64>(q, k, v, lengths, out, part_acc, part_ml, B, Hq, Hkv, Smax, n_split,
+                          chunk, scale, s);
   return -1;
 }

@@ -43,6 +43,16 @@
 //     launch error) instead of hanging the card.
 // 128 KB of the K/V ring plus 32 KB of Q leave one block per SM.
 //
+// Heads of 64 (seamless-m4t's) take the same kernel, a template on D.  A
+// row is then 128 bytes, one swizzle span, so each Q, K and V tile is one
+// TMA box; S = Q K^T is still m64n128k16, over 4 k-steps instead of 8; and
+// O += P V is m64n64k16 with a 32-register accumulator.  The ring keeps
+// its kStages = 2 stages, which halve to 32 KB each (80 KB with Q).  The
+// operations per byte loaded are those of D = 128, so the kernel is still
+// bound by operations; but each kv tile now holds half the tensor-core work
+// against the same softmax, so the softmax and the barriers' latency weigh
+// twice as much, and it runs further from its bound than at D = 128.
+//
 // float32 inputs take a CUDA-core path (the tensor cores would round them
 // to TF32): the same online softmax over the shared SIMT tile routine, a
 // few q rows per block.
@@ -60,7 +70,6 @@ constexpr float kLog2eF = 1.4426950408889634f;
 // bfloat16: TMA, mbarriers, wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kD = 128;                       // head size
 constexpr int kBQ = 128;                      // q rows per block (2 consumer warpgroups x 64)
 constexpr int kBK = 128;                      // kv rows per tile
 constexpr int kStages = 2;                    // K/V ring depth
@@ -68,10 +77,17 @@ constexpr int kThreads = 384;                 // 2 consumer warpgroups + 1 produ
 constexpr int kSpan = 64;                     // bf16 columns in one 128-byte swizzle span
 constexpr int kQBox = kBQ * kSpan * 2;        // bytes of one 64-column box of the Q tile
 constexpr int kKVBox = kBK * kSpan * 2;       // ... of a K or V tile
-constexpr int kQBytes = 2 * kQBox;
-constexpr int kKVBytes = 2 * kKVBox;
-constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
-constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 3 * kStages);   // + 1024: alignment
+
+// Shared-memory layout for heads of D (64 or 128): the Q tile, then each
+// stage's K tile and V tile, each tile D / 64 boxes of 128-byte rows.
+template <int D>
+struct Tiles {
+  static constexpr int kBoxes = D / kSpan;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKVBytes = kBoxes * kKVBox;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 3 * kStages);   // + alignment
+};
 
 // One box of a 4-d tensor map into shared memory; completes on ``bar``.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -143,6 +159,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+#define WG_ACC32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" \
+  "}"
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+
+// The same product for heads of 64: d (64 x 64, f32) += A (64 x 16) B (16 x 64).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // Named barriers 1 and 2 pass the turn on the tensor cores between the two
 // consumer warpgroups (barrier 0 is __syncthreads).
 __device__ __forceinline__ void named_bar_sync(int id) {
@@ -196,11 +230,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m_run)[2],
 
 // O += P V for kv tile t: waits for its V, runs the product to completion
 // (P's registers are free afterwards) and releases the tile's ring stage.
-__device__ __forceinline__ void pv_product(float (&acc)[64], const uint32_t (&pa)[kBK / 16][4],
+// O (64 x D) is D / 2 floats a thread.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&acc)[D / 2], const uint32_t (&pa)[kBK / 16][4],
                                            uint32_t base, uint32_t full_v, uint32_t empty, int t,
                                            int lane) {
+  using L = Tiles<D>;
   const int s = t % kStages;
-  const uint32_t v_tile = base + kQBytes + s * 2 * kKVBytes + kKVBytes;
+  const uint32_t v_tile = base + L::kQBytes + s * 2 * L::kKVBytes + L::kKVBytes;
   mbar_wait(full_v + 8 * s, (t / kStages) & 1);
   wgmma_fence();
 #pragma unroll
@@ -214,15 +251,17 @@ __device__ __forceinline__ void pv_product(float (&acc)[64], const uint32_t (&pa
 
 // grid (B * Hq, ceil(Sq / 128)), 384 threads; q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D)
 // through their tensor maps, o (B,Sq,Hq,D).
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int Sq, int Skv,
     int Hq, int Hkv, int causal, int q_offset, float qk_scale_log2) {
+  using L = Tiles<D>;
   extern __shared__ unsigned char smem_raw[];
-  // Q tile, then stage s's K tile and V tile; each tile two 64-column boxes
-  // of 128-byte rows.  The swizzle repeats every 1024 bytes: align to it.
+  // Q tile, then stage s's K tile and V tile; each tile D / 64 boxes of
+  // 128-byte rows.  The swizzle repeats every 1024 bytes: align to it.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_q = base + kBarOffset;
+  const uint32_t bar_q = base + L::kBarOffset;
   const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages, empty = full_v + 8 * kStages;
 
   const int bh = blockIdx.x, b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);
@@ -246,19 +285,19 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     // producer warpgroup: one thread keeps the ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 256 && n_kt > 0) {
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load(base, &tm_q, bar_q, 0, hq, q0, b);
-      tma_load(base + kQBox, &tm_q, bar_q, kSpan, hq, q0, b);
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < L::kBoxes; ++c)
+        tma_load(base + c * kQBox, &tm_q, bar_q, c * kSpan, hq, q0, b);
       for (int it = 0; it < n_kt; ++it) {
         const int s = it % kStages;
-        const uint32_t k_dst = base + kQBytes + s * 2 * kKVBytes, v_dst = k_dst + kKVBytes;
+        const uint32_t k_dst = base + L::kQBytes + s * 2 * L::kKVBytes, v_dst = k_dst + L::kKVBytes;
         mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);   // the first round passes
-        mbar_expect_tx(full_k + 8 * s, kKVBytes);
-        tma_load(k_dst, &tm_k, full_k + 8 * s, 0, hk, it * kBK, b);
-        tma_load(k_dst + kKVBox, &tm_k, full_k + 8 * s, kSpan, hk, it * kBK, b);
-        mbar_expect_tx(full_v + 8 * s, kKVBytes);
-        tma_load(v_dst, &tm_v, full_v + 8 * s, 0, hk, it * kBK, b);
-        tma_load(v_dst + kKVBox, &tm_v, full_v + 8 * s, kSpan, hk, it * kBK, b);
+        mbar_expect_tx(full_k + 8 * s, L::kKVBytes);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(k_dst + c * kKVBox, &tm_k, full_k + 8 * s, c * kSpan, hk, it * kBK, b);
+        mbar_expect_tx(full_v + 8 * s, L::kKVBytes);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(v_dst + c * kKVBox, &tm_v, full_v + 8 * s, c * kSpan, hk, it * kBK, b);
       }
     }
   } else {
@@ -268,9 +307,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     const int warp_row0 = q0 + wg * 64 + warp * 16 + q_offset;   // key position of the warp's row 0
     const uint32_t q_rows = base + wg * 64 * kSpan * 2;          // this warpgroup's rows of a Q box
 
-    float acc[64];
+    float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};   // rows lane/4 and lane/4 + 8 of the warp
     float l_run[2] = {0.f, 0.f};               // this thread's share of the row sums
     uint32_t pa[kBK / 16][4];                  // P of the previous tile as wgmma A fragments
@@ -287,14 +326,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     int kt = 0;
     for (; kt < n_kt; ++kt) {
       const int s = kt % kStages;
-      const uint32_t k_tile = base + kQBytes + s * 2 * kKVBytes;
+      const uint32_t k_tile = base + L::kQBytes + s * 2 * L::kKVBytes;
       mbar_wait(full_k + 8 * s, (kt / kStages) & 1);
       named_bar_sync(1 + wg);
-      if (kt > 0) pv_product(acc, pa, base, full_v, empty, kt - 1, lane);
+      if (kt > 0) pv_product<D>(acc, pa, base, full_v, empty, kt - 1, lane);
       float sc[64];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {   // 16 columns of D: a 32-byte step in a span
+      for (int kk = 0; kk < D / 16; ++kk) {   // 16 columns of D: a 32-byte step in a span
         const uint32_t col = (kk % 4) * 32;
         wgmma_ss(sc, smem_desc(q_rows + (kk / 4) * kQBox + col, 16, 1024),
                  smem_desc(k_tile + (kk / 4) * kKVBox + col, 16, 1024), kk);
@@ -313,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
       for (int h = 0; h < 2; ++h) {
         l_run[h] = l_run[h] * alpha[h] + sum[h];
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           acc[4 * j + 2 * h] *= alpha[h];
           acc[4 * j + 2 * h + 1] *= alpha[h];
         }
@@ -329,11 +368,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
     }
     if (kt > 0) {   // the last tile's P V
       if (wg == 0) named_bar_sync(1);   // takes warpgroup 1's last turn signal
-      pv_product(acc, pa, base, full_v, empty, kt - 1, lane);
+      pv_product<D>(acc, pa, base, full_v, empty, kt - 1, lane);
     }
 
-    __nv_bfloat16* ob = o + ((long)b * Sq * Hq + hq) * kD;
-    const long q_stride = (long)Hq * kD;
+    __nv_bfloat16* ob = o + ((long)b * Sq * Hq + hq) * D;
+    const long q_stride = (long)Hq * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float l = l_run[h];
@@ -343,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_fwd_wgmma_kernel(
       const int row = q0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
       if (row < Sq) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < D / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(ob + row * q_stride + j * 8 + (lane % 4) * 2) =
               __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
@@ -408,14 +447,14 @@ static EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// x (B, S, H, 128) bf16 as a 4-d map (D, H, S, B) of boxes 64 columns x rows,
+// x (B, S, H, D) bf16 as a 4-d map (D, H, S, B) of boxes 64 columns x rows,
 // 128-byte swizzle; rows past S read as zeros.
-static bool encode_map(CUtensorMap* map, const void* x, int B, int S, int H, int rows) {
+static bool encode_map(CUtensorMap* map, const void* x, int B, int S, int H, int D, int rows) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)H * kD * 2,
-                                 (cuuint64_t)S * H * kD * 2};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {(cuuint32_t)kSpan, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
@@ -424,17 +463,19 @@ static bool encode_map(CUtensorMap* map, const void* x, int B, int S, int H, int
          CUDA_SUCCESS;
 }
 
+template <int D>
 static int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
                        int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;   // they hold this call's pointers: encoded for each launch
-  if (!encode_map(&tm_q, q, B, Sq, Hq, kBQ) || !encode_map(&tm_k, k, B, Skv, Hkv, kBK) ||
-      !encode_map(&tm_v, v, B, Skv, Hkv, kBK))
+  if (!encode_map(&tm_q, q, B, Sq, Hq, D, kBQ) || !encode_map(&tm_k, k, B, Skv, Hkv, D, kBK) ||
+      !encode_map(&tm_v, v, B, Skv, Hkv, D, kBK))
     return -2;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  constexpr int smem = Tiles<D>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, causal, Skv - Sq,
       scale * kLog2eF);
   return (int)cudaGetLastError();
@@ -453,7 +494,8 @@ static int launch_f32(const void* q, const void* k, const void* v, void* o, int 
 }  // namespace repro_torch
 
 // q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); o (B, Sq, Hq, D); contiguous, one
-// device, 16-byte aligned; D = 128 (llama3-8b's heads).  dtype: 0 = bfloat16
+// device, 16-byte aligned; D = 128 (llama3-8b's heads) or 64 (seamless-m4t's).
+// dtype: 0 = bfloat16
 // (tensor cores), 1 = float32 (CUDA cores).  Returns a cudaError_t; a shape
 // the kernel does not take returns -1, a tensor map libcuda refuses -2.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
@@ -462,7 +504,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   using namespace repro_torch;
   if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128) return launch_bf16(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-  if (dtype == 1 && D == 128) return launch_f32<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+  if (dtype == 0 && D == 128)
+    return launch_bf16<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+  if (dtype == 0 && D == 64)
+    return launch_bf16<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_f32<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_f32<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, scale, s);
   return -1;
 }

@@ -3,8 +3,9 @@
 Port of ``repro/kernels/decode_attention``.  :func:`decode_attention` takes
 the reference wrapper's layout — q (B, Hq, D), caches (B, Smax, Hkv, D),
 lengths (B,) — and launches the CUDA kernel of ``csrc/decode_attention.cu``
-for tensors on the card.  :func:`decode_attention_plain` is the same
-function in plain PyTorch; the wrapper uses it only for tensors on the CPU.
+for tensors on the card, with heads of 64 or 128.
+:func:`decode_attention_plain` is the same function in plain PyTorch; the
+wrapper uses it only for tensors on the CPU.
 
 Contract (the kernel's, ``kernel.py:70-73`` of the reference): cache
 entries at or past a row's length are never read and never affect the
@@ -27,6 +28,7 @@ from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GROUP = 8
+_HEAD_SIZES = (64, 128)   # the kernel's D: seamless-m4t's heads and the others'
 _TILE = {torch.bfloat16: 32, torch.float32: 32}   # keys per shared-memory tile
 
 
@@ -54,7 +56,11 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *, scale: float | None 
 
 
 _TILES_PER_CHUNK = 8
-_BLOCKS_PER_SM = 4   # bf16 blocks resident on an SM: 4 x 51 KB of shared memory
+# bf16 blocks resident on an SM, by head size: a block's ring (3 stages of a
+# 32-row K and V tile) is 51 KB at D = 128 and 27 KB at D = 64.  At D = 64,
+# 8 blocks an SM measured 0.0619 ms against 4 blocks' 0.0811 at seamless's
+# cross-attention decode shape (tools/kernel_variants.py --d64, H100 80GB HBM3)
+_BLOCKS_PER_SM = {128: 4, 64: 8}
 
 
 def _split(smax: int, tile: int) -> tuple[int, int]:
@@ -120,11 +126,12 @@ def pair_blocks(lengths, n_blocks: int, tile: int, n_kv_heads: int, smax: int):
     return out
 
 
-def grid_blocks(device, n_pairs: int, smax: int) -> int:
-    """Blocks of the bf16 split kernel: one wave of ``_BLOCKS_PER_SM`` a
-    multiprocessor, and no more than the tiles the cache could hold."""
+def grid_blocks(device, n_pairs: int, smax: int, d: int) -> int:
+    """Blocks of the bf16 split kernel at head size ``d``: one wave of
+    ``_BLOCKS_PER_SM[d]`` a multiprocessor, and no more than the tiles the
+    cache could hold."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(_BLOCKS_PER_SM * sms, n_pairs * -(-smax // _TILE[torch.bfloat16])))
+    return max(1, min(_BLOCKS_PER_SM[d] * sms, n_pairs * -(-smax // _TILE[torch.bfloat16])))
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None):
@@ -146,7 +153,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None
         raise ValueError(f"decode_attention: dtypes {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if lengths.dtype != torch.int32:
         raise ValueError("decode_attention: lengths must be int32")
-    if Hq % Hkv or Hq // Hkv > _MAX_GROUP or D != 128:
+    if Hq % Hkv or Hq // Hkv > _MAX_GROUP or D not in _HEAD_SIZES:
         raise ValueError(f"decode_attention: Hq={Hq}, Hkv={Hkv}, D={D} not supported")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()
             and lengths.is_contiguous()):
@@ -158,7 +165,7 @@ def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None
     g = Hq // Hkv
     if q.dtype == torch.bfloat16:
         # n_split blocks, slot i + p of block i's segment of pair p
-        n_split, chunk = grid_blocks(q.device, B * Hkv, Smax), _TILE[q.dtype]
+        n_split, chunk = grid_blocks(q.device, B * Hkv, Smax, D), _TILE[q.dtype]
         slots = n_split + B * Hkv
     else:
         chunk, n_split = _split(Smax, _TILE[q.dtype])

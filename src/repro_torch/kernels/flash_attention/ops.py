@@ -5,7 +5,7 @@ the reference wrapper's layout — q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) —
 and launches the CUDA kernel of ``csrc/flash_attention.cu`` for tensors on
 the card: for bfloat16 the tensor cores (TMA loads and wgmma products, so
 q, k, v and the output must start on a 16-byte boundary), for float32 the
-CUDA cores.
+CUDA cores; heads of 64 or 128.
 :func:`flash_attention_plain` is the same function in plain PyTorch; the
 wrapper uses it only for tensors on the CPU.
 
@@ -29,6 +29,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+_HEAD_SIZES = (64, 128)   # the kernel's D: seamless-m4t's heads and the others'
 _Q_CHUNK = 2048   # query rows per dense product in the plain version
 _BWD_Q_CHUNK = 512   # query rows per recomputed score block in the backward
 
@@ -80,7 +81,7 @@ def _flash_forward(q, k, v, causal: bool, scale: float | None):
                          f"v {tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
-    if Hq % Hkv or D != 128 or Sq == 0 or Skv == 0:
+    if Hq % Hkv or D not in _HEAD_SIZES or Sq == 0 or Skv == 0:
         raise ValueError(f"flash_attention: Hq={Hq}, Hkv={Hkv}, D={D}, Sq={Sq}, Skv={Skv} "
                          "not supported")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -5,8 +5,10 @@ architecture, on one device.
 
 Port of ``repro/launch/serve.py``: seeded random weights, ``gen`` greedy
 steps from token 0 over a ``gen + 1``-slot cache, and the reference's line
-(tokens/s, ms a step; the first step included).  The ``--mesh-*`` flags
-are not ported (one device).
+(tokens/s, ms a step; the first step included).  The audio family decodes
+against the cross-attention K/V of ``enc_len`` zero frames, as the
+reference's ``init_cache`` gives them.  The ``--mesh-*`` flags are not
+ported (one device).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""SwiGLU MLP block of the decoder families (port of ``repro/models/mlp.py``)."""
+"""Dense MLP blocks: SwiGLU (the decoder families) and GELU (the
+encoder-decoder); port of ``repro/models/mlp.py``."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +23,19 @@ def swiglu_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["wg"])
     u = x @ p["wu"]
     return (g * u) @ p["wd"]
+
+
+def init_gelu_mlp(generator, cfg, layers: int | None = None, device="cuda",
+                  d_ff: int | None = None) -> dict:
+    dt = pdtype(cfg)
+    M, Fd = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wu": dense_init(generator, (M, Fd), dt, layers=layers, device=device),
+        "wd": dense_init(generator, (Fd, M), dt, layers=layers, device=device),
+    }
+
+
+def gelu_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x wu) wd`` with the tanh approximation (``jax.nn.gelu``'s
+    default, ``approximate=True``)."""
+    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]

@@ -1,4 +1,4 @@
-"""Model API of the port (dense decoder and xLSTM families).
+"""Model API of the port (every family of the reference).
 
     init_params(cfg, seed, device)            -> params dict
     loss_fn(params, batch, cfg)               -> (loss, metrics)      [train]
@@ -7,11 +7,11 @@
     init_cache(params, cfg, batch, max_len)   -> cache dict
     decode_step(params, cache, token, pos, cfg) -> (logits, cache)
 
-Port of the decoder-only families of ``repro/models/model.py``: dense,
-moe (the dense stack with MoE MLPs), vlm (the dense stack with QK-norm),
-hybrid (Jamba super-blocks) and ssm (xLSTM pairs); the encoder-decoder
-(audio) family is not ported yet.  :func:`count_params_analytic` covers
-every family, because the job profiles of the whole zoo need it.
+Port of ``repro/models/model.py``: dense, moe (the dense stack with MoE
+MLPs), vlm (the dense stack with QK-norm), hybrid (Jamba super-blocks), ssm
+(xLSTM pairs) and audio (the encoder-decoder of ``encdec.py``; its batches
+add ``"frames"`` (B, Se, M), and its prefill is the serve step's encoder
+pass, ``runtime/steps.py: make_prefill_step``).
 """
 from __future__ import annotations
 
@@ -20,11 +20,11 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import transformer as tfm
+from repro_torch.models import encdec, transformer as tfm
 from repro_torch.models.layers import embed_init, ones_init, pdtype, rmsnorm
 
 
-PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 def require_ported(cfg) -> None:
@@ -38,7 +38,10 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = pdtype(cfg)
     p: dict = {"emb": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, device)}
-    if cfg.family == "hybrid":
+    if cfg.enc_dec:
+        p.update(encdec.init_encdec_stacks(gen, cfg, device))
+        p["enc_norm"] = ones_init((cfg.d_model,), torch.float32, device)
+    elif cfg.family == "hybrid":
         p["blocks"] = tfm.init_jamba_stack(gen, cfg, device)
     elif cfg.family == "ssm":
         p["pairs"] = tfm.init_xlstm_stack(gen, cfg, device)
@@ -64,10 +67,17 @@ def _logits(p, x, cfg):
 # Training
 # ===========================================================================
 
-def _train_stack(params, tokens, cfg):
+def _train_stack(params, batch, cfg):
     require_ported(cfg)
+    tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)
+    if cfg.enc_dec:
+        frames = batch["frames"].to(pdtype(cfg))
+        enc_pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+        enc_out = encdec.encoder_apply(params["enc_layers"], frames, cfg, enc_pos)
+        enc_out = rmsnorm(enc_out, params["enc_norm"], cfg.norm_eps)
+        return encdec.decoder_apply(params["dec_layers"], x, enc_out, cfg, positions)
     if cfg.family == "hybrid":
         return tfm.jamba_stack_train(params["blocks"], x, cfg, positions)
     if cfg.family == "ssm":
@@ -76,8 +86,9 @@ def _train_stack(params, tokens, cfg):
 
 
 def forward_train(params, batch, cfg):
-    """batch: {"tokens": (B, S) int} -> (logits (B, S, V) f32, aux)."""
-    x, aux = _train_stack(params, batch["tokens"], cfg)
+    """batch: {"tokens": (B, S) int; the audio family adds "frames"
+    (B, Se, M)} -> (logits (B, S, V) f32, aux)."""
+    x, aux = _train_stack(params, batch, cfg)
     return _logits(params, x, cfg), aux
 
 
@@ -108,7 +119,7 @@ def loss_fn(params, batch, cfg):
     the cost of one more logits product in the backward.  Returns
     ``(total, metrics)``; the metrics are detached 0-dim tensors with the
     reference's keys."""
-    x, aux = _train_stack(params, batch["tokens"], cfg)
+    x, aux = _train_stack(params, batch, cfg)
     labels = batch["labels"]
     S = labels.shape[1]
     sc = min(LOSS_CHUNK, S)
@@ -134,8 +145,13 @@ def loss_fn(params, batch, cfg):
 # ===========================================================================
 
 def init_cache(params, cfg, batch: int, max_len: int) -> dict:
+    """A zero cache; for the audio family with the cross-attention K/V of
+    zero frames (the reference's abstract path; the prefill step gives
+    the encoder's)."""
     require_ported(cfg)
     device = params["emb"].device
+    if cfg.enc_dec:
+        return encdec.init_encdec_cache(params, cfg, batch, max_len)
     if cfg.family == "hybrid":
         return tfm.init_jamba_cache(cfg, batch, max_len, device=device)
     if cfg.family == "ssm":
@@ -149,7 +165,9 @@ def decode_step(params, cache, token, pos, cfg):
 
     The cache is updated in place and returned."""
     x_t = _embed(params, token[:, None], cfg)[:, 0]        # (B, M)
-    if cfg.family == "hybrid":
+    if cfg.enc_dec:
+        x_t, cache = encdec.decoder_decode(params["dec_layers"], x_t, cache, pos, cfg)
+    elif cfg.family == "hybrid":
         x_t, cache = tfm.jamba_stack_decode(params["blocks"], x_t, cache, pos, cfg)
     elif cfg.family == "ssm":
         x_t, cache = tfm.xlstm_stack_decode(params["pairs"], x_t, cache, pos, cfg)
@@ -168,8 +186,12 @@ def prefill(params, tokens, cfg, max_len: int):
     ``hybrid`` and ``ssm`` families the reference returns the last logits
     of the parallel forward and a *fresh* zero cache (its documented
     limitation: serving code rebuilds the recurrent state by a decode
-    warm-up); so does this."""
+    warm-up); so does this.  The audio family raises, as in the
+    reference: its prefill is the encoder pass of the serve step."""
     require_ported(cfg)
+    if cfg.enc_dec:
+        raise NotImplementedError("enc-dec prefill is the encoder pass; see "
+                                  "runtime/steps.py: make_prefill_step")
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
     x = _embed(params, tokens, cfg)

@@ -43,7 +43,10 @@ def make_train_tenant(name: str, cfg, share: float, seq: int, batch: int, *, see
     Its state is ``(params, opt, log)``: ``log`` is a tuple of each step's
     metrics.  Weights and data come from ``seed``; the reference seeds both
     with ``hash(name) % 2**31``, which Python salts per process for a
-    ``str``.  With ``stream``, the state is made on that stream."""
+    ``str``.  With ``stream``, the state is made on that stream.  An
+    encoder-decoder config is refused: the pipeline makes no ``frames``."""
+    if cfg.enc_dec:
+        raise NotImplementedError(f"{cfg.name}: the data pipeline makes no encoder frames")
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, decay_steps=1000)
     pipe = DataPipeline(cfg.vocab_size, seq, batch, seed=seed)
     on_stream = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()

@@ -6,13 +6,15 @@ to the decode step; here a step is a callable over
 :func:`repro_torch.models.model.prefill` and
 :func:`repro_torch.models.model.decode_step` on one device.  There are no
 meshes or shardings (multi-GPU is out of scope), and the donated cache is
-the decode step's in-place cache update.  The encoder-decoder prefill (the
-encoder pass and the cross-attention K/V) waits for the audio family.
+the decode step's in-place cache update.  The encoder-decoder's prefill
+step is the encoder pass and the cross-attention K/V.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import encdec
+from repro_torch.models.layers import pdtype, rmsnorm
 from repro_torch.models.model import decode_step, init_cache, prefill, require_ported
 
 
@@ -40,12 +42,27 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda"):
 
 def make_prefill_step(cfg, shape, device="cuda"):
     """``step(params, tokens) -> (last logits (B, V) f32, cache)`` for a
-    ``ShapeConfig``'s (global_batch, seq_len) tokens."""
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder prefill is not ported yet")
+    ``ShapeConfig``'s (global_batch, seq_len) tokens.
+
+    For the audio family, ``step(params, frames, enc_lens) -> cache``:
+    frames (B, Se, M) and enc_lens (B,) int32; the encoder pass, its
+    ``enc_norm``, then a cache of ``seq_len`` self-attention slots with the
+    cross-attention K/V of the encoder's output."""
     require_ported(cfg)
     device = torch.device(device)
     B, S = shape.global_batch, shape.seq_len
+
+    if cfg.enc_dec:
+        @torch.no_grad()
+        def encode(params, frames, enc_lens):
+            _check("frames", frames, (B, *frames.shape[1:2], cfg.d_model), device)
+            _check("enc_lens", enc_lens, (B,), device)
+            pos = torch.arange(frames.shape[1], device=device)[None, :]
+            enc_out = encdec.encoder_apply(params["enc_layers"], frames.to(pdtype(cfg)), cfg, pos)
+            enc_out = rmsnorm(enc_out, params["enc_norm"], cfg.norm_eps)
+            return encdec.init_encdec_cache(params, cfg, B, S, enc_out, enc_lens)
+
+        return encode
 
     def step(params, tokens):
         _check("tokens", tokens, (B, S), device)

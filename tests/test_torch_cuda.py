@@ -51,8 +51,8 @@ def _randn(rng, shape, dtype, device):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
 
 
-def _decode_inputs(rng, lengths, smax, hkv, group, dtype, device):
-    B, D = len(lengths), 128
+def _decode_inputs(rng, lengths, smax, hkv, group, dtype, device, D=128):
+    B = len(lengths)
     q = _randn(rng, (B, hkv * group, D), dtype, device)
     k = _randn(rng, (B, smax, hkv, D), dtype, device)
     v = _randn(rng, (B, smax, hkv, D), dtype, device)
@@ -80,6 +80,16 @@ def test_decode_kernel_matches_plain(card, dtype, group):
     _check_decode(*_decode_inputs(rng, [1000, 333, 1, 0, 64], 1000, 2, group, dtype, card))
 
 
+# heads of 64 (seamless-m4t: 16/16 heads, its self and cross decode), at
+# tile edges and a row of length 0
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 4])
+def test_decode_kernel_at_d64(card, dtype, group):
+    rng = np.random.default_rng(400 + group)
+    _check_decode(*_decode_inputs(rng, [1000, 31, 32, 33, 0, 1, 4096], 4096, 4, group, dtype,
+                                  card, D=64))
+
+
 # the bf16 kernel's 32-key tiles: one key below, at and above a tile; a
 # length past Smax; Smax not a tile multiple; rows of length 0 among them
 @pytest.mark.parametrize("group", [1, 4, 8])
@@ -99,7 +109,7 @@ def test_decode_kernel_one_long_pair(card, extra):
 
     tile = _TILE[torch.bfloat16]
     smax = 700 * tile + 5
-    n_blocks = grid_blocks(card, 1, smax)
+    n_blocks = grid_blocks(card, 1, smax, 128)
     rng = np.random.default_rng(200 + extra)
     q, k, v, lens = _decode_inputs(rng, [n_blocks * tile + extra], smax, 1, 8, torch.bfloat16,
                                    card)
@@ -183,6 +193,25 @@ def test_flash_kernel_tile_edges(card, Sq, Skv, causal):
     _assert_rows_close(out, flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
 
 
+# heads of 64: the encoder (non-causal, Sq == Skv), cross-attention in
+# teacher forcing (Sq != Skv) and the decoder's causal self-attention, at
+# the 128-row tile edges
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Skv,causal", [(300, 300, False), (129, 1000, False),
+                                           (127, 127, True), (1000, 129, True)])
+def test_flash_kernel_at_d64(card, dtype, Sq, Skv, causal):
+    rng = np.random.default_rng(Sq * 5 + Skv + causal)
+    B, Hq, Hkv, D = 2, 4, 4, 64
+    q = _randn(rng, (B, Sq, Hq, D), dtype, card)
+    k = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    v = _randn(rng, (B, Skv, Hkv, D), dtype, card)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _assert_rows_close(out, flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
 def test_flash_kernel_refuses_unaligned_tensors(card):
     """TMA reads from a 16-byte boundary: a view one element in is refused."""
     q = torch.zeros((2, 128, 8, 128), dtype=torch.bfloat16, device=card)
@@ -200,8 +229,8 @@ def test_flash_kernel_refuses_unaligned_tensors(card):
 
 
 def test_kernels_refuse_what_they_do_not_take(card):
-    q = torch.zeros((1, 4, 64), device=card)        # D = 64: the kernels take 128
-    kv = torch.zeros((1, 8, 2, 64), device=card)
+    q = torch.zeros((1, 4, 96), device=card)        # D = 96: the kernels take 64 and 128
+    kv = torch.zeros((1, 8, 2, 96), device=card)
     with pytest.raises(ValueError):
         decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32, device=card))
     with pytest.raises(ValueError):
@@ -240,6 +269,41 @@ def test_model_on_card_matches_cpu(card):
 
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def test_encdec_on_card_matches_cpu(card):
+    """The audio family at seamless-m4t's head size of 64 (smoke widths, f32):
+    the loss, the prefill step's cross K/V and 6 decode steps at ragged
+    enc_lens on the card against the CPU."""
+    from repro_torch.configs import SHAPES, scaled_shape
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+
+    cfg = get_smoke_config("seamless-m4t-large-v2").replace(d_head=64, dtype="float32")
+    cpu = tm.init_params(cfg, seed=5, device="cpu")
+    gpu = _to(cpu, card)
+    rng = np.random.default_rng(6)
+    B, S, Se = 2, 12, 40
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    frames = torch.from_numpy(rng.standard_normal((B, Se, cfg.d_model)).astype(np.float32))
+    labels = torch.roll(tokens, -1, 1)
+    with torch.no_grad():
+        lc, _ = tm.loss_fn(cpu, {"tokens": tokens, "labels": labels, "frames": frames}, cfg)
+        lg, _ = tm.loss_fn(gpu, {"tokens": tokens.to(card), "labels": labels.to(card),
+                                 "frames": frames.to(card)}, cfg)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-5, rtol=1e-5)
+    shape = scaled_shape(SHAPES["decode_32k"], 64, 32768 // S)        # B x S self slots
+    enc_lens = torch.tensor([Se, 23], dtype=torch.int32)
+    cc = make_prefill_step(cfg, shape, device="cpu")(cpu, frames, enc_lens)
+    cg = make_prefill_step(cfg, shape, device=card)(gpu, frames.to(card), enc_lens.to(card))
+    for key in ("k", "v"):
+        torch.testing.assert_close(cg["cross"][key].cpu(), cc["cross"][key], atol=1e-5,
+                                   rtol=1e-5)
+    dc, dg = make_decode_step(cfg, B, S, device="cpu"), make_decode_step(cfg, B, S, device=card)
+    for t in range(6):
+        pos = torch.full((B,), t, dtype=torch.int32)
+        l1, cc = dc(cpu, cc, tokens[:, t], pos)
+        l2, cg = dg(gpu, cg, tokens[:, t].to(card), pos.to(card))
+        _assert_rows_close(l2.cpu(), l1, torch.float32)
 
 
 def _first_layer(tree):

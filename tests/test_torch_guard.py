@@ -45,9 +45,11 @@ SLICE_6 = {"repro_torch.models.xlstm", "repro_torch.online", "repro_torch.online
            "repro_torch.online.traces"}
 # the vectorized simulator
 SLICE_7 = {"repro_torch.online.vecsim"}
-# the moe, hybrid and vlm families and the serve path; 66 modules in all
+# the moe, hybrid and vlm families and the serve path
 SLICE_8 = {"repro_torch.models.mamba", "repro_torch.models.moe", "repro_torch.runtime.steps",
            "repro_torch.launch.serve"}
+# the audio (encoder-decoder) family; 67 modules in all
+SLICE_9 = {"repro_torch.models.encdec"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -56,5 +58,5 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 66 and SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 <= names, \
-        out.stdout
+    slices = SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9
+    assert len(names) >= 67 and slices <= names, out.stdout

@@ -116,6 +116,18 @@ def test_init_params_mirror_reference_tree():
 
 
 def test_other_families_are_refused():
-    """The audio (encoder-decoder) family is not ported yet."""
+    """Every family of the registry is ported: the audio (encoder-decoder)
+    ``init_params`` tree has the reference's keys, shapes and dtypes (bf16
+    config, traced without drawing; ``xattn`` without biases) and counts
+    ``count_params_analytic`` parameters.  A family the reference does not
+    have is refused."""
+    arch = "seamless-m4t-large-v2"
+    cfg = t_smoke(arch)
+    got = {k: (tuple(v.shape), str(v.dtype).split(".")[1])
+           for k, v in _leaves(tm.init_params(cfg, seed=0, device="cpu"))}
+    ref = jax.eval_shape(lambda k: jm.init_params(j_smoke(arch), k), KEY)
+    assert got == {k: (tuple(v.shape), str(v.dtype)) for k, v in _leaves(ref)}
+    assert not any(k.startswith("dec_layers/xattn/b") for k in got)
+    assert sum(int(np.prod(s)) for s, _ in got.values()) == tm.count_params_analytic(cfg)
     with pytest.raises(NotImplementedError):
-        tm.init_params(t_smoke("seamless-m4t-large-v2"), device="cpu")
+        tm.init_params(cfg.replace(family="diffusion"), device="cpu")

@@ -16,6 +16,13 @@ NAMES = {
     "__nv_bfloat16*, int, int, int, int, int, int, float)": "flash_attention",
     "void repro_torch::flash_fwd_simt_kernel<float, 128>(float const*, float const*, "
     "float const*, float*, int, int, int, int, int, int, float)": "flash_attention",
+    "void repro_torch::flash_fwd_wgmma_kernel<64>(CUtensorMap_st, CUtensorMap_st, "
+    "CUtensorMap_st, __nv_bfloat16*, int, int, int, int, int, int, float)": "flash_attention",
+    "void repro_torch::decode_split_bf16_kernel<64>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+    "__nv_bfloat16 const*, int const*, float*, float*, int, int, int, int, int, float)":
+        "decode_attention",
+    "void repro_torch::decode_combine_bf16_kernel<64>(float const*, float const*, int const*, "
+    "__nv_bfloat16*, int, int, int, int, int, int)": "decode_attention",
     "void repro_torch::decode_split_kernel<__nv_bfloat16, 128>(...)": "decode_attention",
     "_ZN11repro_torch24decode_split_bf16_kernelEPK13__nv_bfloat16S2_S2_PKiPfS5_iiiiiif":
         "decode_attention",

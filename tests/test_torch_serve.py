@@ -1,7 +1,7 @@
 """The port's serve path: the one-device step factories of
 ``runtime/steps.py`` and the ``launch/serve.py`` launcher, on the CPU, for
-the moe, hybrid and vlm families' smoke configs in float32; and the
-parameter trees of those families against the reference's."""
+the moe, hybrid, vlm and audio families' smoke configs in float32; and the
+parameter trees of the first three against the reference's."""
 import re
 
 import jax
@@ -13,7 +13,8 @@ from repro.configs import get_smoke_config as j_smoke
 from repro.models import model as jm
 from repro_torch.configs import SHAPES, get_smoke_config as t_smoke, scaled_shape
 from repro_torch.launch import serve
-from repro_torch.models import model as tm
+from repro_torch.models import encdec, model as tm
+from repro_torch.models.layers import rmsnorm
 from repro_torch.runtime.steps import make_decode_step, make_prefill_step
 
 FAMILIES = {"moe": "qwen2-moe-a2.7b", "hybrid": "jamba-v0.1-52b", "vlm": "chameleon-34b"}
@@ -71,7 +72,7 @@ def test_step_factories_give_what_the_model_gives(family):
         step(params, c1, tokens[:1, 0], pos[:1])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b", "seamless-m4t-large-v2"])
 def test_serve_main_runs_on_the_cpu(arch, capsys):
     logits = serve.main(["--arch", arch, "--scale", "smoke", "--batch", "3", "--gen", "5",
                          "--device", "cpu"])
@@ -81,8 +82,42 @@ def test_serve_main_runs_on_the_cpu(arch, capsys):
 
 
 def test_encdec_and_audio_are_refused():
-    cfg = t_smoke("seamless-m4t-large-v2")
+    """The audio family's step factories on the CPU: the prefill step is the
+    encoder pass (frames and enc_lens in, the cache out: what
+    ``init_encdec_cache`` gives for the normed encoder output), the decode
+    step gives what ``decode_step`` gives.  What they refuse: a token
+    prefill (as the reference's ``prefill`` does), frames of another batch
+    or width."""
+    cfg = t_smoke("seamless-m4t-large-v2").replace(dtype="float32")
+    params = tm.init_params(cfg, seed=1, device="cpu")
+    shape = scaled_shape(SHAPES["decode_32k"], 64, 4096)            # 2 x 8 self slots
+    B, S, Se = shape.global_batch, shape.seq_len, cfg.enc_len
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.standard_normal((B, Se, cfg.d_model)).astype(np.float32))
+    enc_lens = torch.tensor([Se, 5], dtype=torch.int32)
+    prefill = make_prefill_step(cfg, shape, device="cpu")
+    cache = prefill(params, frames, enc_lens)
+    with torch.no_grad():
+        enc = encdec.encoder_apply(params["enc_layers"], frames, cfg,
+                                   torch.arange(Se)[None, :])
+        ref = encdec.init_encdec_cache(params, cfg, B, S, rmsnorm(enc, params["enc_norm"],
+                                                                  cfg.norm_eps), enc_lens)
+    for (k, a), (_, b) in zip(_leaves(cache), _leaves(ref)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=k)
+    assert cache["self"]["k"].shape == (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+
+    step = make_decode_step(cfg, B, S, device="cpu")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 4)))
+    c2 = {"self": {k: v.clone() for k, v in cache["self"].items()}, "cross": cache["cross"]}
+    for t in range(4):
+        pos = torch.full((B,), t, dtype=torch.int32)
+        l1, cache = step(params, cache, tokens[:, t], pos)
+        l2, c2 = tm.decode_step(params, c2, tokens[:, t], pos, cfg)
+        torch.testing.assert_close(l1, l2, atol=0, rtol=0)
+        assert torch.isfinite(l1).all()
     with pytest.raises(NotImplementedError):
-        make_prefill_step(cfg, SHAPES["prefill_32k"], device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_decode_step(cfg, 2, 8, device="cpu")
+        tm.prefill(params, tokens, cfg, 4)
+    with pytest.raises(ValueError):
+        prefill(params, frames[:1], enc_lens[:1])
+    with pytest.raises(ValueError):
+        prefill(params, frames[..., :-1], enc_lens)

@@ -18,8 +18,9 @@ its kernels filed as mLSTM chunks, sLSTM loop, chunked CE, AdamW, cuBLAS
 and other (some 5 x 10^5 kernels: its trace takes minutes to read).  Then
 the vectorized simulator's 64-trace sweeps of ``chip_smoke.py`` phase 7,
 time sharing and RL, with the engine's iterations and kernels an
-iteration.  Then one step of each of phase 8's serving runs (the
-qwen2-moe decode job, jamba's prefill and decode, chameleon's decode), its
+iteration.  Then one step of each of phases 8 and 9's serving runs (the
+qwen2-moe decode job, jamba's prefill and decode, chameleon's decode,
+seamless-m4t's prefill and decode), its
 kernels filed as MoE and Mamba scan (regions the package marks), flash,
 decode attention, cuBLAS and other.  Then the pair of ``chip_smoke.py``
 (prefill 1 x 8192 tokens,
@@ -370,12 +371,15 @@ def serve_steps(torch, out_dir: Path) -> dict:
     attention, cuBLAS and other: the zoo's qwen2-moe-a2.7b decode job
     (batch 8 against 4096 slots), jamba-v0.1-52b's prefill (1 of 4
     super-blocks, 1 x 8192) and decode step (batch 8 against 32768 slots),
-    and chameleon-34b's decode step (16 of 48 layers, batch 1 against 4112
-    slots)."""
+    chameleon-34b's decode step (16 of 48 layers, batch 1 against 4112
+    slots) and phase 9's seamless-m4t-large-v2 prefill step (16 x 4096
+    frames) and decode step (batch 16 against 8192 self slots and 4096
+    frames)."""
     import threading
 
     from repro_torch.configs import SHAPES, get_config, scaled_shape
     from repro_torch.models import model as tm
+    from repro_torch.runtime.steps import make_prefill_step
 
     tid = threading.get_native_id()
     recs = {}
@@ -414,6 +418,19 @@ def serve_steps(torch, out_dir: Path) -> dict:
     run("chameleon_decode_step", lambda: tm.decode_step(params, cache, tokens[0, :1], pos, cfg))
     del params, cache
     chip_smoke.free(torch)
+
+    cfg, dec = chip_smoke.seamless_job()                         # phase 9's prefill step
+    params = tm.init_params(cfg, seed=chip_smoke.SEAMLESS_SEED)
+    frames = torch.randn((dec.global_batch, cfg.enc_len, cfg.d_model), generator=gen,
+                         device="cuda").bfloat16()
+    lens = torch.tensor(chip_smoke.D64_CROSS_LENGTHS, dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(cfg, dec)
+    run("seamless_prefill_step", lambda: prefill(params, frames, lens))
+    del params, frames
+    chip_smoke.free(torch)
+
+    tenant = chip_smoke.seamless_tenant(torch, stream)            # phase 9's decode tenant
+    run("seamless_decode_step", lambda: tenant.step_fn(tenant.state))
     return recs
 
 
