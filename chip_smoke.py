@@ -132,6 +132,36 @@ Phases, each of which stops the run with a non-zero exit on failure:
    full width and depth: the prefill step on 2 x 4096 frames, all valid,
    then 64 decode steps, each step's logits against ``forward_train``'s
    within 1e-4 a row in f32 (the bf16 figure printed only).
+10. Training the moe, hybrid, vlm and audio families through
+   ``runtime/steps.py: make_train_step``.  (a) One f32 step, TF32 off, of
+   the smoke configs of qwen2-moe-a2.7b, deepseek-moe-16b, jamba-v0.1-52b,
+   chameleon-34b (heads of 128) and seamless-m4t-large-v2 (heads of 64,
+   24 tokens against 40 frames) on the card against the CPU: the loss and
+   ``moe_aux`` within phase 5 (a)'s bound, ``moe_drop_frac`` equal, every
+   gradient leaf and the updated parameters within phase 5 (a)'s bounds.
+   (b) seamless-m4t-large-v2 at its published width and depth on the zoo's
+   job ``("seamless-m4t-large-v2", "train_4k", 8, 8)`` with its batch
+   halved (16 x 512 tokens and frames; at 32 the chunked CE does not fit
+   the card): 8 steps on one fixed batch, each step's loss, grad norm and
+   ms, the peak memory; it fails unless every loss and norm is finite, the
+   last loss is below the first and the flash kernel ran 144 times a step
+   (24 encoder, 24 decoder self- and 24 cross-attention calls, and the
+   same again in the block-remat recompute).  (c) The same for
+   qwen2-moe-a2.7b at its published widths cut to 4 of 24 layers and
+   chameleon-34b cut to 2 of 48, 1 x 4096 markov tokens, 6 steps (8 and 4
+   flash launches a step).  (d) ``runtime/elastic.py: ElasticTrainer`` over
+   ``make_train_step`` (qwen2-moe's smoke config, f32) on a 2 x 1 grid of
+   the one card, checkpoints every 3 of 12 steps, row 1 failing at step 7:
+   the log must show the checkpoints, the shrink and the rewind to 6, the
+   restored state must equal the saved one bit for bit and the losses after
+   it an uninterrupted run's within 1e-5 relative.  (e)
+   ``repro_torch.launch.train`` at xlstm-125m full (8 x 128), 6 steps with a
+   checkpoint every 3, then 9: the second run must resume at 6, its bf16
+   leaves restored as bf16 with the bits on disk, every loss finite.  (f)
+   ``repro_torch.launch.schedule --episodes 1500 --window 8``, started in
+   the background after phase 4 in a temporary directory whose agent cache
+   holds phase 4's agent: it must load it without training, exit 0 (it
+   validates every RL schedule) and print phase 4's rl throughputs.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -143,6 +173,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -823,7 +854,7 @@ def phase_train(torch, card):
         f"rl <= oracle on every queue; kernel launches while training {launches}")
     if not mean_rl > 1.1:
         fail(f"the trained agent's mean throughput {mean_rl:.3f} is not above 1.1")
-    return launches, agent
+    return launches, agent, rl
 
 
 # ---------------------------------------------------------------------------
@@ -840,6 +871,7 @@ LM_SEED = 31
 # gradient's size, so an entry whose tiny gradient differs moves by at most
 # that much).
 LM_LOSS_TOL, LM_GRAD_TOL, LM_PARAM_TOL = 1e-5, 1e-4, 2e-5
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, decay_steps=1000)   # the train tenant's
 # (c) co-run against solo: each step's loss within 1e-3 relative.  The two
 # runs are the same computation; the bound leaves room for sums whose order
 # is not fixed (atomics), which would move the losses of later steps.
@@ -864,42 +896,56 @@ def train_tenant(stream=None):
                              shape.seq_len, shape.global_batch, seed=LM_SEED, stream=stream)
 
 
-def train_step_card_vs_cpu(torch, cfg, seq: int, seed: int) -> tuple[float, float, float]:
-    """One f32 train step of ``cfg`` (2 x ``seq`` markov tokens, 30 labels
-    masked) on the card and on the CPU from the same weights: returns the
-    loss's relative difference, the worst gradient leaf's difference over
-    its norm and the updated parameters' largest absolute difference."""
-    from repro_torch.data import DataPipeline, batch_to_device
-    from repro_torch.models.model import init_params, loss_fn
-    from repro_torch.optim import (
-        OptConfig, adamw_update, init_opt_state, tree_leaves, tree_unflatten,
-    )
+def markov_batch(cfg, seq: int) -> dict:
+    """Phase 5's card-vs-CPU batch: 2 x ``seq`` markov tokens, 30 labels masked."""
+    from repro_torch.data import DataPipeline
 
-    opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, decay_steps=1000)
     batch = DataPipeline(cfg.vocab_size, seq, 2, seed=7).batch(0)
-    batch["labels"][0, 500:530] = -1                                 # masked labels
+    batch["labels"][0, 500:530] = -1
+    return batch
+
+
+def train_step_card_vs_cpu(torch, cfg, batch: dict, seed: int, prefix: str) -> dict:
+    """One f32 ``make_train_step`` step of ``cfg`` on the card and on the CPU
+    from the same weights and ``batch`` (numpy): the loss, ``moe_aux`` and
+    ``moe_drop_frac`` of the step's metrics, every gradient leaf (of
+    ``loss_fn`` by autograd, before the step) and the updated parameters,
+    within the bounds at ``LM_LOSS_TOL`` (the drop fraction equal).  Returns
+    the loss's relative difference, the worst gradient leaf's difference
+    over its norm and the updated parameters' largest absolute difference."""
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves, tree_map
+    from repro_torch.runtime.steps import make_train_step
+
+    cpu = init_params(cfg, seed=seed, device="cpu")
     out = {}
-    for device in ("cpu", "cuda"):
-        params = init_params(cfg, seed=seed, device="cpu")
-        leaves = [p.to(device).requires_grad_(True) for p in tree_leaves(params)]
-        params = tree_unflatten(params, leaves)
-        total, _ = loss_fn(params, batch_to_device(batch, device), cfg)
-        grads = torch.autograd.grad(total, leaves)
-        params, _, _ = adamw_update(params, tree_unflatten(params, grads),
-                                    init_opt_state(params), opt_cfg)
-        out[device] = (total.item(), [g.cpu() for g in grads],
-                       [p.detach().cpu() for p in tree_leaves(params)])
-    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
-    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        total, _ = loss_fn(params, tb, cfg)
+        grads = [g.cpu() for g in torch.autograd.grad(total, leaves)]
+        step = make_train_step(cfg, OptConfig(**LM_TRAIN_OPT), device=dev)
+        params, _, metrics = step(params, init_opt_state(params), tb)
+        out[dev] = ({k: v.item() for k, v in metrics.items()}, grads,
+                    [p.detach().cpu() for p in tree_leaves(params)])
+    (m_cpu, g_cpu, p_cpu), (m_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
+    errs = {k: abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30) for k in ("loss", "moe_aux")}
     grad_err = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_gpu, g_cpu))
     param_err = max((a - b).abs().max().item() for a, b in zip(p_gpu, p_cpu))
-    say(f"    card vs CPU loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {loss_err:.2e}, bound "
-        f"{LM_LOSS_TOL:g}); worst gradient leaf {grad_err:.2e} of its norm (bound "
-        f"{LM_GRAD_TOL:g}); updated parameters max abs diff {param_err:.2e} (bound "
-        f"{LM_PARAM_TOL:g})")
-    if not (loss_err <= LM_LOSS_TOL and grad_err <= LM_GRAD_TOL and param_err <= LM_PARAM_TOL):
+    say(f"{prefix}card vs CPU loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} (relative "
+        f"{errs['loss']:.2e}), moe_aux {m_gpu['moe_aux']:.6e} vs {m_cpu['moe_aux']:.6e} "
+        f"({errs['moe_aux']:.2e}; bound {LM_LOSS_TOL:g}), moe_drop_frac "
+        f"{m_gpu['moe_drop_frac']!r} == {m_cpu['moe_drop_frac']!r}; worst gradient leaf "
+        f"{grad_err:.2e} of its norm (bound {LM_GRAD_TOL:g}); updated parameters max abs diff "
+        f"{param_err:.2e} (bound {LM_PARAM_TOL:g})")
+    if not (all(rel_close(m_gpu[k], m_cpu[k], LM_LOSS_TOL) for k in ("loss", "moe_aux"))
+            and m_gpu["moe_drop_frac"] == m_cpu["moe_drop_frac"] and grad_err <= LM_GRAD_TOL
+            and param_err <= LM_PARAM_TOL):
         fail(f"{cfg.name}: a train step on the card differs from the CPU's")
-    return loss_err, grad_err, param_err
+    return {"loss": errs["loss"], "grad": grad_err, "param": param_err}
 
 
 def phase_lm_reference(torch):
@@ -909,7 +955,7 @@ def phase_lm_reference(torch):
 
     cfg = get_smoke_config("llama3-8b").replace(d_head=128, dtype="float32")   # the kernels' D
     say(f"[5] (a) small model ({cfg.name}, D=128, f32, TF32 off, 2 x 640 tokens):")
-    train_step_card_vs_cpu(torch, cfg, 640, seed=6)
+    train_step_card_vs_cpu(torch, cfg, markov_batch(cfg, 640), 6, "    ")
 
 
 def lm_losses(state) -> list[float]:
@@ -1158,7 +1204,7 @@ def phase_xlstm_reference(torch, card):
     cfg = get_smoke_config("xlstm-125m").replace(dtype="float32")
     say(f"[5] (e) {cfg.name} (f32, TF32 off, 2 x 600 tokens: the mLSTM pads its last chunk "
         f"of {cfg.xlstm.chunk}):")
-    train_step_card_vs_cpu(torch, cfg, 600, seed=8)
+    train_step_card_vs_cpu(torch, cfg, markov_batch(cfg, 600), 8, "    ")
 
     cpu = tm.init_params(cfg, seed=9, device="cpu")
     gpu = tree_map(lambda t: t.cuda(), cpu)
@@ -2221,30 +2267,422 @@ def phase_audio(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training the moe, hybrid, vlm and audio families
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILY_ARCHS = ("qwen2-moe-a2.7b", "deepseek-moe-16b", "jamba-v0.1-52b", "chameleon-34b",
+                      SEAMLESS)
+# (b) the zoo's seamless train job: 32 x 512 tokens and 32 x 512 frames.  Its
+# batch is halved: at 32 the chunked CE's backward (one 512-token chunk is
+# the whole sequence, 32 x 512 x 256,206 f32 logits = 16.8 GB, several alive
+# at once) asks for 15.6 GiB more with 70.1 GiB allocated and fails; at 16
+# the peak is 61.3 GiB (H100 80GB HBM3, 700 W).  The widths and depth are
+# the published ones.
+SEAMLESS_TRAIN_JOB = (SEAMLESS, "train_4k", 8, 8)
+SEAMLESS_TRAIN_BATCH_DIV = 2     # of the job's batch of 32
+SEAMLESS_TRAIN_STEPS = 8
+# (c) published widths cut in depth, 1 x 4096 markov tokens
+WIDE_TRAIN = (("qwen2-moe-a2.7b", 4), ("chameleon-34b", 2))          # (arch, layers kept)
+WIDE_TRAIN_STEPS = 6
+FAMILY_TRAIN_SEED = 51
+# (d) ElasticTrainer: checkpoints every 3 of 12 steps, the failure at step 7
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_FAILURE = 12, 3, 7
+ELASTIC_LOSS_TOL = 1e-5
+# (e) the reference's launcher, as `python -m repro_torch.launch.train`
+TRAIN_CLI = ["--arch", "xlstm-125m", "--scale", "full", "--batch", "8", "--seq", "128",
+             "--ckpt-every", "3"]
+TRAIN_CLI_STEPS = (6, 9)
+# (f) the co-scheduler launcher on phase 4's agent, started after phase 4
+SCHEDULE_ARGV = ["--episodes", str(TRAIN_EPISODES), "--window", str(TRAIN_WINDOW)]
+
+
+def phase_family_train_reference(torch):
+    """(a) The five smoke configs at the kernels' head sizes (128; seamless
+    64), f32 with TF32 off: 2 x 40 tokens (the Mamba scan's last chunk of 16
+    ragged), seamless 2 x 24 tokens against 40 frames (cross-attention at Sq
+    != Skv), labels masked in row 0."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+
+    for i, arch in enumerate(TRAIN_FAMILY_ARCHS):
+        cfg = get_smoke_config(arch)
+        cfg = cfg.replace(d_head=64 if cfg.enc_dec else 128, dtype="float32")
+        rng = np.random.default_rng(60 + i)
+        S = 24 if cfg.enc_dec else 40
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32),
+                 "labels": rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)}
+        batch["labels"][0, 3:9] = -1
+        frames = ""
+        if cfg.enc_dec:
+            batch["frames"] = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+            frames = " against 40 frames"
+        train_step_card_vs_cpu(torch, cfg, batch, 70 + i, f"[10] (a) {cfg.name} (D={cfg.d_head}, "
+                               f"f32, TF32 off, 2 x {S} tokens{frames}): ")
+
+
+def train_on_card(torch, card, tag: str, cfg, batch: dict, steps: int, flash_a_step: int) -> dict:
+    """``steps`` steps of ``make_train_step`` on one fixed ``batch`` (on the
+    card), from weights of ``FAMILY_TRAIN_SEED``: each step's loss, grad
+    norm and synchronized ms, the peak memory and the flash launches.
+    Fails unless every loss and norm is finite, the last loss is below the
+    first and the flash kernel ran ``flash_a_step`` times a step."""
+    from repro_torch.models.model import count_params_analytic, init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    held = (torch.cuda.memory_allocated() / 2**30, torch.cuda.memory_reserved() / 2**30)
+    n = count_params_analytic(cfg)
+    tokens = batch["tokens"].numel()
+    ce_chunk = batch["tokens"].shape[0] * min(512, batch["tokens"].shape[1]) * cfg.vocab_size * 4
+    say(f"[10] ({tag}) {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, {cfg.n_layers}{f' + {cfg.n_enc_layers}' if cfg.enc_dec else ''} layers, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}, remat {cfg.remat}; {n / 1e9:.3f} B params; "
+        f"{' x '.join(map(str, batch['tokens'].shape))} markov tokens; reckoned: parameters, "
+        f"f32 master, m, v and bf16 gradients {16 * n / 1e9:.1f} GB, one CE chunk's f32 logits "
+        f"{ce_chunk / 1e9:.1f} GB; held before it {held[0]:.2f} GiB allocated, {held[1]:.2f} GiB "
+        f"reserved")
+    params = init_params(cfg, seed=FAMILY_TRAIN_SEED)
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+    torch.cuda.synchronize()
+    reset_launches()
+    rows = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        rows.append((met["loss"].item(), met["grad_norm"].item(), met["moe_drop_frac"].item(),
+                     1e3 * (time.perf_counter() - t0)))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (loss, gn, drop, ms) in enumerate(rows):
+        say(f"[10] ({tag}) step {i + 1}: loss {loss:.4f} grad_norm {gn:.4f} moe_drop_frac "
+            f"{drop:.4f}  {ms:.1f} ms")
+    rest = [r[3] for r in rows[1:]]
+    say(f"[10] ({tag}) {cfg.name}: {steps} steps, first {rows[0][3]:.1f} ms, median of the rest "
+        f"{median(rest):.1f} ms ({tokens / median(rest) * 1e3:.0f} tokens/s), peak device memory "
+        f"{peak:.1f} GiB, flash launches {launches['flash_attention']} (expected "
+        f"{flash_a_step} x {steps})  ({card})")
+    losses, norms = [r[0] for r in rows], [r[1] for r in rows]
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{cfg.name}: a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name}: the loss did not fall ({losses[0]:.4f} -> {losses[-1]:.4f})")
+    if launches != {"flash_attention": flash_a_step * steps, "decode_attention": 0, "rmsnorm": 0}:
+        fail(f"{cfg.name}: launches {launches}, expected {flash_a_step * steps} flash")
+    del params, opt
+    free(torch)
+    return launches
+
+
+def seamless_train_batch(torch):
+    """(b)'s config and fixed batch: the zoo's seamless train job (its batch
+    cut by ``SEAMLESS_TRAIN_BATCH_DIV``), markov tokens from a seeded
+    pipeline and frames (B, min(enc_len, S), d_model) from a seeded draw."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.data import DataPipeline, batch_to_device
+
+    arch, shape_name, bdiv, sdiv = SEAMLESS_TRAIN_JOB
+    cfg = get_config(arch)
+    shape = scaled_shape(SHAPES[shape_name], bdiv * SEAMLESS_TRAIN_BATCH_DIV, sdiv)
+    B, S = shape.global_batch, shape.seq_len
+    batch = batch_to_device(DataPipeline(cfg.vocab_size, S, B, seed=FAMILY_TRAIN_SEED).batch(0),
+                            "cuda")
+    gen = torch.Generator("cuda").manual_seed(FAMILY_TRAIN_SEED + 1)
+    batch["frames"] = torch.randn((B, min(cfg.enc_len, S), cfg.d_model), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+    return cfg, batch
+
+
+def wide_train_batch(torch, arch: str, layers: int):
+    """(c)'s config (published widths, ``layers`` deep) and its fixed 1 x
+    4096 markov batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, batch_to_device
+
+    cfg = get_config(arch).replace(n_layers=layers)
+    return cfg, batch_to_device(DataPipeline(cfg.vocab_size, 4096, 1,
+                                             seed=FAMILY_TRAIN_SEED).batch(0), "cuda")
+
+
+def phase_family_train_wide(torch, card) -> dict:
+    """(b) seamless at its published width and depth; (c) qwen2-moe-a2.7b
+    at 4 of 24 layers and chameleon-34b at 2 of 48."""
+    cfg, batch = seamless_train_batch(torch)
+    # a step: 24 encoder, 24 decoder self and 24 cross-attention flash
+    # calls, and the same again in the block-remat recompute
+    runs = [train_on_card(torch, card, "b", cfg, batch, SEAMLESS_TRAIN_STEPS,
+                          2 * (cfg.n_enc_layers + 2 * cfg.n_layers))]
+    del batch
+    for arch, layers in WIDE_TRAIN:
+        cfg, batch = wide_train_batch(torch, arch, layers)
+        runs.append(train_on_card(torch, card, "c", cfg, batch, WIDE_TRAIN_STEPS, 2 * layers))
+        del batch
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def phase_elastic(torch, card) -> dict:
+    """(d) ``ElasticTrainer`` over ``make_train_step`` on qwen2-moe-a2.7b's
+    smoke config (D=128, f32) on a 2 x 1 grid of the one card: checkpoints
+    every 3 steps, a failure of row 1 at step 7 (rewound to 6), 12 steps;
+    then the same run without the failure."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline, batch_to_device
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.runtime.elastic import ElasticTrainer, FailureEvent, make_mesh
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b").replace(d_head=128, dtype="float32")
+    pipe = DataPipeline(cfg.vocab_size, 64, 2, seed=FAMILY_TRAIN_SEED)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    losses, saved, restored = [], {}, []
+
+    def make_step(mesh):
+        step = make_train_step(cfg, OptConfig(**LM_TRAIN_OPT))
+
+        def fn(state, batch):
+            params, opt, metrics = step(state["params"], state["opt"], batch)
+            losses.append(metrics["loss"].item())
+            return {"params": params, "opt": opt}
+        return fn
+
+    def init_state(mesh):
+        params = init_params(cfg, seed=FAMILY_TRAIN_SEED)
+        return {"params": params, "opt": init_opt_state(params)}
+
+    class Trainer(ElasticTrainer):          # keeps what it saved and what it loaded
+        def _dump(self, state):
+            saved[len(saved)] = [t.detach().clone() for t in tree_leaves(state)]
+            return state
+
+        def _load(self, template, tree, mesh):
+            out = ElasticTrainer._load(template, tree, mesh)
+            restored.append([t.detach().clone() for t in tree_leaves(out)])
+            return out
+
+    def batch_fn(step, mesh):
+        return batch_to_device(pipe.batch(step), "cuda")
+
+    try:
+        reset_launches()
+        tr = Trainer(make_step, init_state, str(work / "failed"), ckpt_every=ELASTIC_EVERY)
+        _, mesh = tr.run(make_mesh((2, 1)), ELASTIC_STEPS, batch_fn,
+                         failures=[FailureEvent(ELASTIC_FAILURE, [1])])
+        launches = read_launches()
+        with_failure = losses[:]
+        rewound = ELASTIC_FAILURE // ELASTIC_EVERY * ELASTIC_EVERY
+        losses.clear()
+        Trainer(make_step, init_state, str(work / "whole"), ckpt_every=ELASTIC_EVERY).run(
+            make_mesh((2, 1)), ELASTIC_STEPS, batch_fn)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"[10] (d) ElasticTrainer over make_train_step, {cfg.name} (D=128, f32) on a 2 x 1 grid "
+        f"of the card, {ELASTIC_STEPS} steps, checkpoints every {ELASTIC_EVERY}, row 1 failing "
+        f"at step {ELASTIC_FAILURE}: log {tr.log}, final mesh {mesh.shape}")
+    expect_log = ([f"ckpt@{s}" for s in range(ELASTIC_EVERY, ELASTIC_FAILURE, ELASTIC_EVERY)]
+                  + [f"shrunk_to_(1, 1)@{rewound}"]
+                  + [f"ckpt@{s}" for s in range(rewound + ELASTIC_EVERY, ELASTIC_STEPS + 1,
+                                                ELASTIC_EVERY)])
+    if tr.log != expect_log:
+        fail(f"ElasticTrainer log {tr.log}, expected {expect_log}")
+    # what was restored is what was saved at the rewound step, bit for bit
+    snap = saved[rewound // ELASTIC_EVERY - 1]
+    if len(restored) != 1 or not all(a.dtype == b.dtype and torch.equal(a, b)
+                                     for a, b in zip(restored[0], snap)):
+        fail("ElasticTrainer: the restored state differs from the saved one")
+    dtypes = sorted({str(t.dtype).removeprefix("torch.") for t in snap})
+    after = with_failure[ELASTIC_FAILURE:]
+    ref = losses[rewound:]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(after, ref))
+    say(f"[10] (d) restored {len(snap)} leaves (params, master, m, v, count; {', '.join(dtypes)}) "
+        f"== saved at step {rewound}, bit for bit; losses after the resume vs the uninterrupted "
+        f"run: largest relative difference {worst:.3e} (bound {ELASTIC_LOSS_TOL:g}), bit-equal "
+        f"{after == ref}; flash launches {launches['flash_attention']}  ({card})")
+    if len(after) != ELASTIC_STEPS - rewound or not worst <= ELASTIC_LOSS_TOL \
+            or with_failure[:ELASTIC_FAILURE] != losses[:ELASTIC_FAILURE]:
+        fail("ElasticTrainer: the losses after the resume differ from the uninterrupted run's")
+    return launches
+
+
+def phase_train_cli(torch, card) -> dict:
+    """(e) ``repro_torch.launch.train`` at xlstm-125m full (8 x 128), 6 steps
+    with a checkpoint every 3, then again to 9 steps: it must resume at 6.
+    The checkpoint's bf16 leaves must restore as bf16 with the bits on disk."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch import train
+    from repro_torch.optim import tree_leaves
+
+    free(torch)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    printed, metrics = [], []
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for steps in TRAIN_CLI_STEPS:
+            argv = TRAIN_CLI + ["--steps", str(steps), "--ckpt-dir", work]
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                metrics.append(train.main(argv))
+            printed.append(out.getvalue().strip().splitlines())
+            say(f"[10] (e) python -m repro_torch.launch.train {' '.join(argv[:-1])} <tmp>: "
+                f"{' | '.join(printed[-1])}")
+        tree, _, step = ck.restore(work, device="cuda")
+        disk, _, _ = ck.restore(work, device=None)         # as numpy reads it: bf16 as V2
+        bf16 = 0
+        for t, raw in zip(tree_leaves(tree), tree_leaves(disk)):
+            if t.dtype == torch.bfloat16:
+                bf16 += 1
+                if not np.array_equal(t.view(torch.int16).cpu().numpy(), raw.view(np.int16)):
+                    fail("launch.train: a restored bf16 leaf differs from its bits on disk")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = read_launches()
+    losses = [float(m) for lines in printed for m in re.findall(r"loss=([-0-9.naif]+)",
+                                                                  " ".join(lines))]
+    say(f"[10] (e) {time.perf_counter() - t0:.1f} s; losses printed {losses}; the checkpoint of "
+        f"step {step} restores {bf16} bf16 leaves as bf16 with the bits on disk; launches "
+        f"{launches}  ({card})")
+    if f"resumed @ {TRAIN_CLI_STEPS[0]}" not in printed[1] or step != TRAIN_CLI_STEPS[1]:
+        fail(f"launch.train did not resume at {TRAIN_CLI_STEPS[0]}: {printed[1]}")
+    if not bf16 or not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(m["loss"].item()) for m in metrics):
+        fail("launch.train: a loss is not finite, or no bf16 leaf was saved")
+    return launches
+
+
+def start_schedule(agent) -> dict:
+    """(f), started after phase 4: ``python -m repro_torch.launch.schedule``
+    in a temporary working directory whose agent cache holds phase 4's agent
+    (saved by ``repro_torch.checkpoint`` under the launcher's key), in the
+    background at a lower priority: its oracle runs on the host beside the
+    card's phases.  The process is killed and the directory removed when
+    this script exits."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ck
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_schedule_"))
+    cache = work / "experiments" / "agents" / f"w{TRAIN_WINDOW}_c4_e{TRAIN_EPISODES}"
+    ck.save(str(cache), TRAIN_EPISODES, {"params": {k: v.cpu() for k, v in agent.params.items()}},
+            extra={"env_steps": agent.env_steps}, keep_last=1)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.schedule", *SCHEDULE_ARGV],
+                            cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 10)    # behind the phases' host loops
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"proc": proc, "t0": time.perf_counter(), "stop": stop}
+
+
+def phase_schedule_cli(card, sched: dict, rl: list[float]) -> None:
+    """(f) The launcher's table: it must have loaded phase 4's agent (no
+    training line), exited 0 (it validates every RL schedule), and its rl
+    row must be phase 4's agent's throughputs on the same queues."""
+    t0 = time.perf_counter()
+    try:
+        out, _ = sched["proc"].communicate(timeout=900)
+    finally:
+        sched["stop"]()
+    waited = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    say(f"[10] (f) python -m repro_torch.launch.schedule {' '.join(SCHEDULE_ARGV)} (phase 4's "
+        f"agent in its cache; started after phase 4, waited {waited:.1f} s for it here, "
+        f"{time.perf_counter() - sched['t0']:.1f} s since its start), exit "
+        f"{sched['proc'].returncode}:")
+    for line in lines[-7:]:
+        say(f"[10] (f)   {line}")
+    if sched["proc"].returncode != 0 or len(lines) < 7:
+        fail(f"launch.schedule failed: {out[-2000:]}")
+    if any(line.startswith("train_agent_") for line in lines):
+        fail("launch.schedule trained an agent instead of loading phase 4's")
+    row = next((line.split()[1:-2] for line in lines if line.split()[:1] == ["rl"]), None)
+    want = [f"{v:.3f}" for v in rl]
+    say(f"[10] (f) rl row {row} == phase 4's agent on the same queues {want}: {row == want}  "
+        f"({card})")
+    if row != want:
+        fail("launch.schedule's rl row differs from phase 4's agent")
+
+
+def phase_family_train(torch, card, sched: dict, rl: list[float]) -> dict:
+    """Phase 10; returns the kernel launches of its main paths (b)-(e)."""
+    t_phase = time.perf_counter()
+    # Each CUDA stream the earlier phases made (every tenant's) keeps a 32
+    # MiB cuBLAS workspace from the caching allocator, and each one pins the
+    # segment it was cut from, up to 2 GiB: by now 0.7 GiB of workspaces hold
+    # 23 GiB reserved and idle, and (b)'s 62 GiB peak does not fit beside
+    # them.  Released here; a stream that multiplies again gets a new one.
+    torch._C._cuda_clearCublasWorkspaces()
+    free(torch)
+    phase_family_train_reference(torch)
+    runs = [phase_family_train_wide(torch, card), phase_elastic(torch, card),
+            phase_train_cli(torch, card)]
+    phase_schedule_cli(card, sched, rl)
+    free(torch)
+    launches = {name: sum(r[name] for r in runs) for name in runs[0]}
+    say(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s, launches on its main paths "
+        f"{launches}  ({card})")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
 
+    def done(phase: int) -> None:
+        say(f"chip_smoke: phases up to {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_card(torch)
     recs = phase_kernels(torch, card)
     phase_schedule(card)
+    done(2)
     pair = phase_pair(torch, card)
     phase_reference(torch)
-    train, agent = phase_train(torch, card)
+    done(3)
+    train, agent, rl = phase_train(torch, card)
+    sched = start_schedule(agent)
+    done(4)
     phase_lm_reference(torch)
     phase_lm_train(torch, card)
     lm_pair = phase_lm_pair(torch, card)
     step4 = phase_step4_pair(torch, card)
     phase_xlstm_reference(torch, card)
+    done(5)
     trace, heap = phase_online(torch, card, agent)
+    done(6)
     phase_vecsim(torch, card, agent, trace, heap)
+    done(7)
     families = phase_families(torch, card)
     audio = phase_audio(torch, card)
+    done(9)
+    family_train = phase_family_train(torch, card, sched, rl)
     # launches on the main paths: the co-run pair, training the co-scheduler,
-    # the train pair, step 4's pair and phases 8 and 9's serving runs (no
-    # path of the package calls rmsnorm)
+    # the train pair, step 4's pair, phases 8 and 9's serving runs and phase
+    # 10's training runs (no path of the package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
-                + audio[name] for name in pair}
+                + audio[name] + family_train[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -33,9 +33,11 @@ def require_ported(cfg) -> None:
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> dict:
-    """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``."""
+    """Random weights drawn from ``torch.Generator(device).manual_seed(seed)``;
+    on the ``meta`` device, shapes and dtypes only (nothing is drawn)."""
     require_ported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = torch.device(device).type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     dt = pdtype(cfg)
     p: dict = {"emb": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, device)}
     if cfg.enc_dec:

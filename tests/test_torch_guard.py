@@ -48,8 +48,12 @@ SLICE_7 = {"repro_torch.online.vecsim"}
 # the moe, hybrid and vlm families and the serve path
 SLICE_8 = {"repro_torch.models.mamba", "repro_torch.models.moe", "repro_torch.runtime.steps",
            "repro_torch.launch.serve"}
-# the audio (encoder-decoder) family; 67 modules in all
+# the audio (encoder-decoder) family
 SLICE_9 = {"repro_torch.models.encdec"}
+# training every family: checkpoints, the launchers and the elastic loop; 72 modules in all
+SLICE_10 = {"repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.launch.schedule", "repro_torch.launch.train",
+            "repro_torch.runtime.elastic"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -58,5 +62,5 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    slices = SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9
-    assert len(names) >= 67 and slices <= names, out.stdout
+    slices = SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9 | SLICE_10
+    assert len(names) >= 72 and slices <= names, out.stdout

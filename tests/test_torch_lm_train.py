@@ -156,8 +156,10 @@ def test_three_train_steps_match_reference(setup):
 
 def test_train_tenant_learns_and_refuses_other_families():
     """The tenant's state carries each step's metrics; on its fixed markov
-    batch the loss falls.  An encoder-decoder (audio) config is refused:
-    the data pipeline makes no frames."""
+    batch the loss falls.  The tenant takes every family whose batch the
+    data pipeline makes (``tests/test_torch_train_steps.py`` steps the moe,
+    hybrid, vlm and ssm ones); an encoder-decoder (audio) config is
+    refused: the data pipeline makes no frames."""
     _, tcfg = _cfgs()
     t = make_train_tenant("llama-train", tcfg, 0.75, seq=32, batch=4, seed=5, device="cpu")
     state = t.state

@@ -22,12 +22,16 @@ iteration.  Then one step of each of phases 8 and 9's serving runs (the
 qwen2-moe decode job, jamba's prefill and decode, chameleon's decode,
 seamless-m4t's prefill and decode), its
 kernels filed as MoE and Mamba scan (regions the package marks), flash,
-decode attention, cuBLAS and other.  Then the pair of ``chip_smoke.py``
+decode attention, cuBLAS and other.  Then one step of each of phase 10's
+train steps at the published widths (seamless-m4t-large-v2 at 16 x 512
+tokens and frames, qwen2-moe-a2.7b at 4 of 24 layers, 1 x 4096), filed as
+the LM train step is, with MoE as a class.  Then the pair of ``chip_smoke.py``
 (prefill 1 x 8192 tokens,
 decode batch 4 against a 32768-slot cache, full width, bf16): one prefill
 step alone, one decode step alone, and one co-run macro-step of
 ``FusedCoRunner`` (both tenants on their streams).  ``--only`` picks parts
-(``train``, ``lm``, ``xlstm``, ``vecsim``, ``serve``, ``pair``).  For each run it
+(``train``, ``lm``, ``xlstm``, ``vecsim``, ``serve``, ``train-families``,
+``pair``).  For each run it
 prints the wall time, the device's busy time (the union of all kernel
 intervals, over all streams), the idle share, the kernels the device ran,
 the host's launch calls (kernels, graphs, copies), and the device time by
@@ -239,8 +243,6 @@ def lm_train_step(torch, out_dir: Path) -> dict:
     warm-up steps."""
     import threading
 
-    from repro_torch.optim import tree_leaves
-
     tenant = chip_smoke.train_tenant()
     state = tenant.state
     for _ in range(2):
@@ -256,18 +258,12 @@ def lm_train_step(torch, out_dir: Path) -> dict:
     cfg, _ = chip_smoke.lm_train_config()
     rec["attention_backward_ms_per_layer"] = (
         rec["device_ms_by_class"].get("attention backward", 0.0) / cfg.n_layers)
-    # AdamW's least work: each bf16 gradient read, the f32 master, m and v
-    # read and written, the bf16 parameter written (28 bytes), and about 12
-    # f32 operations, a parameter
-    n = sum(p.numel() for p in tree_leaves(holder[0][0]))
-    rec["adamw_params"] = n
-    rec["adamw_bound_ms"], rec["adamw_bound_by"] = chip_smoke.bound(28.0 * n, 12.0 * n,
-                                                                    "float32")
+    adamw_bound(rec, holder[0][0])
     chip_smoke.say(f"[profile] lm_train_step: attention backward "
                    f"{rec['attention_backward_ms_per_layer']:.3f} ms per layer; AdamW "
                    f"{rec['device_ms_by_class'].get('AdamW', 0.0):.3f} ms, bound "
-                   f"{rec['adamw_bound_ms']:.3f} ms ({rec['adamw_bound_by']}) over {n} "
-                   f"parameters")
+                   f"{rec['adamw_bound_ms']:.3f} ms ({rec['adamw_bound_by']}) over "
+                   f"{rec['adamw_params']} parameters")
     return rec
 
 
@@ -434,7 +430,62 @@ def serve_steps(torch, out_dir: Path) -> dict:
     return recs
 
 
-SECTIONS = ("train", "lm", "xlstm", "vecsim", "serve", "pair")
+def adamw_bound(rec: dict, params: dict) -> None:
+    """AdamW's least work, into ``rec``: each bf16 gradient read, the f32
+    master, m and v read and written, the bf16 parameter written (28
+    bytes), and about 12 f32 operations, a parameter."""
+    from repro_torch.optim import tree_leaves
+
+    n = sum(p.numel() for p in tree_leaves(params))
+    rec["adamw_params"] = n
+    rec["adamw_bound_ms"], rec["adamw_bound_by"] = chip_smoke.bound(28.0 * n, 12.0 * n,
+                                                                    "float32")
+
+
+def family_train_steps(torch, out_dir: Path) -> dict:
+    """One step each of ``chip_smoke.py`` phase 10's seamless-m4t-large-v2
+    train step ((b): full width and depth, 16 x 512 tokens and frames) and
+    qwen2-moe-a2.7b train step ((c): 4 of 24 layers, 1 x 4096 tokens),
+    each after two warm-up steps on its fixed batch, its kernels filed as
+    flash forward, attention backward, chunked CE, AdamW, MoE, cuBLAS and
+    other."""
+    import threading
+
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+
+    tid = threading.get_native_id()
+    recs = {}
+    for label, make in (("seamless_train_step", chip_smoke.seamless_train_batch),
+                        ("qwen2_moe_train_step",
+                         lambda torch: chip_smoke.wide_train_batch(torch,
+                                                                   *chip_smoke.WIDE_TRAIN[0]))):
+        chip_smoke.free(torch)
+        cfg, batch = make(torch)
+        params = init_params(cfg, seed=chip_smoke.FAMILY_TRAIN_SEED)
+        holder = [params, init_opt_state(params)]
+        step = make_train_step(cfg, OptConfig(**chip_smoke.LM_TRAIN_OPT))
+
+        def one():
+            holder[0], holder[1], _ = step(holder[0], holder[1], batch)
+
+        one()
+        one()
+        rec = profile(torch, label, one, out_dir, keep=False,
+                      classes=lambda events, kernels: train_step_classes(events, kernels, tid))
+        adamw_bound(rec, params)
+        chip_smoke.say(f"[profile] {label}: AdamW "
+                       f"{rec['device_ms_by_class'].get('AdamW', 0.0):.3f} ms, bound "
+                       f"{rec['adamw_bound_ms']:.3f} ms ({rec['adamw_bound_by']}) over "
+                       f"{rec['adamw_params']} parameters")
+        recs[label] = rec
+        del params, holder, batch
+    chip_smoke.free(torch)
+    return recs
+
+
+SECTIONS = ("train", "lm", "xlstm", "vecsim", "serve", "train-families", "pair")
 
 
 def main() -> None:
@@ -469,6 +520,8 @@ def main() -> None:
         recs.update(vecsim_sweeps(torch, out_dir))
     if "serve" in args.only:
         recs.update(serve_steps(torch, out_dir))
+    if "train-families" in args.only:
+        recs.update(family_train_steps(torch, out_dir))
     if "pair" not in args.only:
         chip_smoke.say(json.dumps({"card": card, "profile": recs}))
         return
