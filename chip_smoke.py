@@ -162,6 +162,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
    the background after phase 4 in a temporary directory whose agent cache
    holds phase 4's agent: it must load it without training, exit 0 (it
    validates every RL schedule) and print phase 4's rl throughputs.
+11. The multi-device layer.  (a) ``repro_torch.launch.dryrun.run_cell`` for
+   llama3-8b x train_4k, prefill_32k and decode_32k on the pod mesh (a fake
+   world of 256 ranks; baseline rules) and decode_32k on the multi-pod mesh
+   (512), into a temporary directory: each record's memory, per-chip
+   flops, bytes, collectives, roofline terms and trace seconds.  It fails
+   unless every record is ok, its argument bytes equal the byte sum of the
+   spec trees' local shard shapes and the full trace's flops equal the
+   differenced count within 1e-6; then ``make_zoo(dryrun_dir=...)`` must
+   take llama3-8b's three base jobs from the records, and the golden agent
+   schedules the paper queues of that zoo on the card and on the CPU (valid
+   schedules, equal actions).  (b) On a 1 x 1 mesh (a world of one NCCL
+   rank): phase 3's prefill (1 x 8192) and decode (batch 4 against 32768
+   slots, 8 steps at ragged starts) and phase 5's train step (4 of 32
+   layers, 1 x 4096) through the sharded step factories.  Each must equal
+   the ``mesh=None`` step bit for bit (logits, caches, loss, grad norm,
+   updated parameters), launch its attention kernel, count the same flops
+   on the card (``launch/roofline.py: CostCounter``, the kernels by their
+   formulas) as the dry run of the same step on the same mesh, and the dry
+   run's peak bytes must lie within [0.8, 1.25] of the card's (the step's
+   arguments plus ``max_memory_allocated`` above what was resident).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -489,11 +509,14 @@ class ActionLog:
         return a
 
 
-def phase_schedule(card):
+def golden_schedules(zoo) -> tuple[list, dict]:
+    """The golden agent's greedy schedules of ``zoo``'s 12 paper queues on
+    the card and on the CPU: each must satisfy the problem's constraints,
+    and the two devices' actions must be equal.  Returns the actions and
+    the card's schedules by queue."""
     from repro_torch.convert import GOLDEN_WINDOW, load_golden_dqn
-    from repro_torch.core import EnvConfig, RLScheduler, make_zoo, paper_queues, validate_schedule
+    from repro_torch.core import EnvConfig, RLScheduler, paper_queues, validate_schedule
 
-    zoo = make_zoo(dryrun_dir=None)
     env_cfg = EnvConfig(window=GOLDEN_WINDOW)
     queues = paper_queues(zoo, window=GOLDEN_WINDOW)
     logs = {}
@@ -508,9 +531,17 @@ def phase_schedule(card):
         logs[device] = (log.actions, out)
     if logs["cuda"][0] != logs["cpu"][0]:
         fail("greedy actions on the card differ from the CPU's")
-    say(f"[2] {len(zoo)} zoo jobs, {len(queues)} paper queues, {len(logs['cuda'][0])} greedy "
+    return logs["cuda"]
+
+
+def phase_schedule(card):
+    from repro_torch.core import make_zoo
+
+    zoo = make_zoo(dryrun_dir=None)
+    actions, schedules = golden_schedules(zoo)
+    say(f"[2] {len(zoo)} zoo jobs, {len(schedules)} paper queues, {len(actions)} greedy "
         f"actions on {card}: card == CPU")
-    for qname, s in logs["cuda"][1].items():
+    for qname, s in schedules.items():
         groups = " | ".join("+".join(j.name for j in g) + f" @ {p.label}"
                             for g, p in zip(s.groups, s.partitions))
         say(f"    {qname}: {groups}")
@@ -2647,6 +2678,294 @@ def phase_family_train(torch, card, sched: dict, rl: list[float]) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device layer — the dry run and the sharded steps
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "llama3-8b"
+DRYRUN_CELLS = (("train_4k", "pod"), ("prefill_32k", "pod"), ("decode_32k", "pod"),
+                ("decode_32k", "multipod"))
+FLOPS_LINEAR_TOL = 1e-6      # the full trace's flops against the differenced count
+MEMORY_RATIO = (0.8, 1.25)   # the dry run's peak bytes over the card's, at 1 x 1
+
+
+def leaf_bytes(tree, shardings) -> int:
+    """Bytes of the local shards a spec tree lays out for an abstract tree
+    (``meta`` tensors); a 0-dim leaf (the optimizer's count) is one element."""
+    if isinstance(tree, dict):
+        return sum(leaf_bytes(v, shardings[k]) for k, v in tree.items())
+    shape = shardings.shard_shape(tree.shape) if tree.ndim else ()
+    return math.prod(shape) * tree.element_size()
+
+
+def spec_tree_bytes(torch, cfg, shape, mesh) -> int:
+    """A cell's argument bytes on one rank from the spec trees alone (the
+    dry run measures them on the traced step's inputs)."""
+    from repro_torch.runtime.steps import batch_specs, cache_shardings, state_shardings
+    from repro_torch.sharding import specs_to_shardings
+
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        params, psh, opt, osh = state_shardings(cfg, mesh)
+        batch, bsh = batch_specs(cfg, shape, mesh)
+        return leaf_bytes(params, psh) + leaf_bytes(opt, osh) + leaf_bytes(batch, bsh)
+    params, psh, _, _ = state_shardings(cfg, mesh, with_opt=False)
+    if shape.kind == "prefill":
+        tok = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
+        return leaf_bytes(params, psh) + leaf_bytes(
+            tok, specs_to_shardings({"tokens": ("act_batch", None)}, mesh, None, tok))
+    cache, csh = cache_shardings(cfg, mesh, B, S)
+    vec = {k: torch.empty((B,), dtype=torch.int32, device="meta") for k in ("token", "pos")}
+    vsh = specs_to_shardings({k: ("act_batch",) for k in vec}, mesh, None, vec)
+    return leaf_bytes(params, psh) + leaf_bytes(cache, csh) + leaf_bytes(vec, vsh)
+
+
+def phase_dryrun(torch, card, work: Path) -> None:
+    """(a) The dry run of llama3-8b's cells on fake worlds of 256 and 512
+    ranks, its records into ``work``, the zoo built from them, and the
+    golden agent scheduling that zoo's paper queues on the card and the CPU."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core import make_zoo
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    cfg = get_config(DRYRUN_ARCH)
+    for shape_id, mesh_kind in DRYRUN_CELLS:
+        rec = run_cell(DRYRUN_ARCH, shape_id, mesh_kind, cost_extract=mesh_kind == "pod",
+                       verbose=False)
+        if not rec["ok"]:
+            fail(f"dry run {DRYRUN_ARCH} x {shape_id} x {mesh_kind}: {rec.get('error')}\n"
+                 f"{rec.get('traceback', '')}")
+        with fake_world(rec["chips"]):
+            want = spec_tree_bytes(torch, cfg, get_shape(shape_id), make_production_mesh(
+                multi_pod=mesh_kind == "multipod", device_type="cpu"))
+        tag = f"[11] (a) {DRYRUN_ARCH} x {shape_id} x {mesh_kind} ({rec['chips']} fake ranks)"
+        say(f"{tag}: args {rec['argument_bytes'] / 2**30:.3f} GiB (spec trees "
+            f"{want / 2**30:.3f}), temp {rec['temp_bytes'] / 2**30:.3f} GiB, peak "
+            f"{rec['peak_bytes'] / 2**30:.3f} GiB, fits 16 GiB {rec['fits_hbm']}; trace "
+            f"{rec['compile_s']:.2f} s (set-up {rec['lower_s']:.2f} s)")
+        if rec["argument_bytes"] != want:
+            fail(f"{tag}: argument bytes {rec['argument_bytes']} != the spec trees' {want}")
+        if mesh_kind == "pod":
+            full, lin = rec["flops_per_chip_full"], rec["flops_per_chip"]
+            say(f"{tag}: per chip flops {lin:.6e} differenced over {rec['scan_units']} units "
+                f"(full trace {full:.6e}), bytes {rec['bytes_per_chip']:.6e} (raw "
+                f"{rec['bytes_per_chip_raw_cpu']:.6e}), collectives "
+                f"{rec['coll_bytes_weighted']:.6e} B weighted ({rec['coll_count_unit']} a unit; full trace "
+                f"{ {k: v['count'] for k, v in rec['coll_by_op_full'].items()} }), kernels "
+                f"{ {k: int(v[0]) for k, v in rec['kernels_full'].items()} }; roofline compute "
+                f"{rec['compute_term_s'] * 1e3:.3f} ms, memory {rec['memory_term_s'] * 1e3:.3f} "
+                f"ms, collective {rec['collective_term_s'] * 1e3:.3f} ms ({rec['dominant']}), "
+                f"useful flops {rec['useful_flops_ratio']:.3f}; unit traces "
+                f"{rec['trace_s_units'][0]:.2f} + {rec['trace_s_units'][1]:.2f} s")
+            if abs(full - lin) > FLOPS_LINEAR_TOL * lin:
+                fail(f"{tag}: full-trace flops {full:.6e} != differenced {lin:.6e}")
+        tagname = f"{DRYRUN_ARCH}_{shape_id}_{mesh_kind}_baseline".replace(".", "_")
+        (work / f"{tagname}.json").write_text(json.dumps(rec, indent=1))
+
+    zoo = make_zoo(dryrun_dir=str(work))
+    base = [j for j in zoo if j.arch == DRYRUN_ARCH and j.meta.get("source") == "dryrun"]
+    if sorted(j.shape for j in base) != sorted(s for s, m in DRYRUN_CELLS if m == "pod"):
+        fail(f"the zoo's {DRYRUN_ARCH} base jobs from the dry run: {[j.name for j in base]}")
+    actions, schedules = golden_schedules(zoo)
+    say(f"[11] (a) make_zoo(dryrun_dir): {len(base)} {DRYRUN_ARCH} jobs from the dry run "
+        f"({', '.join(f'{j.shape} {j.flops_total:.3e} flops a step' for j in base)}); "
+        f"{len(schedules)} paper queues scheduled, every schedule valid, {len(actions)} "
+        f"greedy actions card == CPU  ({card})")
+
+
+def sharded_case(torch, card, tag: str, cfg, shape, run_plain, prepare_mesh, mesh) -> dict:
+    """One (b) case: the ``mesh=None`` run, then the 1 x 1 mesh run under the
+    cost counter (kernel launches counted, peak memory above what was
+    resident before it), then the dry run of the same step on the same mesh
+    (fake tensors).  ``run_plain()`` gives the outputs; ``prepare_mesh()``
+    gives ``(args, run)``: the step's argument tensors, made, and
+    ``run(counter) -> outputs``."""
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.roofline import CostCounter
+
+    ref = run_plain()
+    free(torch)
+    args, run_mesh = prepare_mesh()
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    counter = CostCounter(existing=args)
+    del args
+    reset_launches()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = run_mesh(counter)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    card_temp = torch.cuda.max_memory_allocated() - before
+    launches = read_launches()
+    t1 = time.perf_counter()
+    dry = trace_cell(cfg, shape, mesh, device="cuda")
+    dry_s = time.perf_counter() - t1
+    real = counter.flops
+    ratio = dry["peak_bytes"] / (arg_bytes + card_temp)
+    say(f"[11] (b) {tag}: launches {launches}; {ms:.1f} ms on the mesh (counted); flops "
+        f"counted on the card {real:.6e}, dry run at 1 x 1 {dry['flops_per_chip']:.6e} "
+        f"(full trace {dry['flops_per_chip_full']:.6e}); temp: dry run "
+        f"{dry['temp_bytes'] / 2**30:.3f} GiB, card {card_temp / 2**30:.3f} GiB; peak: dry run "
+        f"{dry['peak_bytes'] / 2**30:.3f} GiB / card {(arg_bytes + card_temp) / 2**30:.3f} GiB "
+        f"= {ratio:.3f}; dry run traced in {dry_s:.1f} s  ({card})")
+    for name in ("flash_attention", "decode_attention"):
+        if name in tag and launches[name] == 0:
+            fail(f"{tag}: the sharded step launched no {name} kernel")
+    if real != dry["flops_per_chip_full"] or abs(real - dry["flops_per_chip"]) > (
+            FLOPS_LINEAR_TOL * real):
+        fail(f"{tag}: flops counted on the card {real:.6e} != the dry run's "
+             f"{dry['flops_per_chip']:.6e} (full trace {dry['flops_per_chip_full']:.6e})")
+    if not MEMORY_RATIO[0] <= ratio <= MEMORY_RATIO[1]:
+        fail(f"{tag}: dry-run peak / card peak {ratio:.3f} outside {MEMORY_RATIO}")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not torch.equal(a, b):
+            fail(f"{tag}: output {i} of the 1 x 1 mesh step differs from the mesh=None step's "
+                 f"(max abs {(a.float() - b.float()).abs().max().item():.3e})")
+    say(f"[11] (b) {tag}: {len(ref)} outputs equal the mesh=None step's bit for bit")
+    return launches
+
+
+def phase_sharded_steps(torch, card) -> dict:
+    """(b) Phase 3's prefill and decode and phase 5's train step through the
+    sharded factories on a 1 x 1 mesh (a world of one NCCL rank)."""
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.launch.mesh import launcher_mesh
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves
+    from repro_torch.runtime.steps import (
+        cache_shardings, distribute, full, make_decode_step, make_prefill_step, make_train_step,
+    )
+
+    cfg = get_config("llama3-8b")
+    pre = scaled_shape(SHAPES["prefill_32k"], 32, 4)               # 1 x 8192, phase 3's
+    dec = scaled_shape(SHAPES["decode_32k"], 32, 1)                # batch 4, 32768 slots
+    tcfg, tshape = lm_train_config()                               # 4 of 32 layers, 1 x 4096
+    gen = torch.Generator("cuda").manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, (1, pre.seq_len), generator=gen, device="cuda")
+    starts = torch.tensor(ragged_starts(dec.global_batch, dec.seq_len), dtype=torch.int32,
+                          device="cuda")
+    dec_tok = torch.randint(0, cfg.vocab_size, (dec.global_batch,), generator=gen, device="cuda")
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in markov_batch(tcfg, tshape.seq_len).items()}
+    batch = {k: v[:1] for k, v in batch.items()}                    # 1 x 4096
+    launches = {}
+    with launcher_mesh(1, 1, "cuda") as mesh:
+        say(f"[11] (b) a world of {torch.distributed.get_world_size()} rank "
+            f"({torch.distributed.get_backend()}), mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        params = init_params(cfg, seed=1)
+
+        def prefill_plain():
+            logits, cache = make_prefill_step(cfg, pre)(params, tokens)
+            return [logits, cache["k"], cache["v"]]
+
+        def prefill_mesh():
+            step = make_prefill_step(cfg, pre, mesh=mesh)
+            dp = step.distribute(params)
+
+            def run(counter):
+                with counter:
+                    logits, cache = step(dp, tokens)
+                return [full(logits), full(cache["k"]), full(cache["v"])]
+
+            return tree_leaves(params) + [tokens], run
+
+        launches["prefill"] = sharded_case(torch, card, "prefill 1 x 8192 (flash_attention)", cfg,
+                                           pre, prefill_plain, prefill_mesh, mesh)
+        free(torch)
+
+        def noisy_cache():
+            cache = init_cache(params, cfg, dec.global_batch, dec.seq_len)
+            g = torch.Generator("cuda").manual_seed(22)
+            for t in (cache["k"], cache["v"]):
+                t.normal_(generator=g)
+            return cache
+
+        def decode_run(step, cache, p, counter=None):
+            outs, tok, pos = [], dec_tok, starts
+            for _ in range(DECODE_STEPS):
+                with counter if counter is not None else contextlib.nullcontext():
+                    logits, cache = step(p, cache, tok, pos)
+                logits = full(logits)
+                tok, pos = logits.argmax(dim=-1), pos + 1
+                outs.append(logits)
+            return outs + [full(cache["k"]), full(cache["v"])]
+
+        def decode_plain():
+            return decode_run(make_decode_step(cfg, dec.global_batch, dec.seq_len), noisy_cache(),
+                              params)
+
+        def decode_mesh():
+            step = make_decode_step(cfg, dec.global_batch, dec.seq_len, mesh=mesh)
+            cache = distribute(noisy_cache(), cache_shardings(cfg, mesh, dec.global_batch,
+                                                             dec.seq_len)[1])
+            dp = step.distribute(params)
+
+            def run(counter):
+                outs = decode_run(step, cache, dp, counter)
+                counter.flops /= DECODE_STEPS      # one step's, as the dry run traces one
+                return outs
+
+            return tree_leaves(params) + [cache["k"].to_local(), cache["v"].to_local(), dec_tok,
+                                          starts], run
+
+        launches["decode"] = sharded_case(torch, card, f"decode batch {dec.global_batch} x "
+                                          f"{dec.seq_len} slots, {DECODE_STEPS} steps "
+                                          "(decode_attention)", cfg, dec, decode_plain,
+                                          decode_mesh, mesh)
+        del params
+        free(torch)
+        opt_cfg = OptConfig(**LM_TRAIN_OPT)
+
+        def train_plain():
+            p = init_params(tcfg, seed=LM_SEED)
+            p, _, m = make_train_step(tcfg, opt_cfg)(p, init_opt_state(p), batch)
+            return [m["loss"], m["grad_norm"]] + [t.detach() for t in tree_leaves(p)]
+
+        def train_mesh():
+            step = make_train_step(tcfg, opt_cfg, mesh=mesh)
+            state = list(step.distribute(init_params(tcfg, seed=LM_SEED)))
+
+            def run(counter):
+                with counter:
+                    p, _, m = step(*state, batch)
+                state.clear()
+                return [m["loss"], m["grad_norm"]] + [full(t).detach() for t in tree_leaves(p)]
+
+            p, opt = state
+            return [t.to_local() for t in tree_leaves(p) + tree_leaves(
+                {k: v for k, v in opt.items() if k != "count"})] + [opt["count"]] + list(
+                batch.values()), run
+
+        launches["train"] = sharded_case(torch, card, f"train {tcfg.n_layers} of 32 layers, "
+                                         f"1 x {tshape.seq_len} (flash_attention)", tcfg,
+                                         tshape, train_plain, train_mesh, mesh)
+    free(torch)
+    return {name: sum(v[name] for v in launches.values()) for name in launches["prefill"]}
+
+
+def phase_multi_device(torch, card) -> dict:
+    """Phase 11; returns the kernel launches of its sharded steps (b)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    free(torch)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        phase_dryrun(torch, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    t_a = time.perf_counter() - t_phase
+    launches = phase_sharded_steps(torch, card)
+    say(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s), launches "
+        f"on its sharded steps {launches}  ({card})")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -2678,11 +2997,14 @@ def main() -> None:
     audio = phase_audio(torch, card)
     done(9)
     family_train = phase_family_train(torch, card, sched, rl)
+    done(10)
+    multi = phase_multi_device(torch, card)
     # launches on the main paths: the co-run pair, training the co-scheduler,
-    # the train pair, step 4's pair, phases 8 and 9's serving runs and phase
-    # 10's training runs (no path of the package calls rmsnorm)
+    # the train pair, step 4's pair, phases 8 and 9's serving runs, phase
+    # 10's training runs and phase 11's sharded steps (no path of the
+    # package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
-                + audio[name] + family_train[name] for name in pair}
+                + audio[name] + family_train[name] + multi[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -15,6 +15,9 @@ NaN there).
 The bf16 kernel spreads the valid keys evenly over its blocks, a rule the
 device applies to the lengths it reads itself: :func:`work_ranges` and
 :func:`pair_blocks` below are that rule's spec, which the CUDA code follows.
+The wrapper reports the kernel's flops and bytes to an active
+``repro_torch.launch.roofline.CostCounter`` (:func:`decode_cost`); on fake
+tensors it returns an empty output and computes nothing.
 The wrapper reads nothing back from the card and sizes its workspace from
 the shapes alone, so a decode step can be captured in a CUDA graph.
 """
@@ -23,8 +26,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import build
+from repro_torch.launch import roofline
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GROUP = 8
@@ -134,10 +140,30 @@ def grid_blocks(device, n_pairs: int, smax: int, d: int) -> int:
     return max(1, min(_BLOCKS_PER_SM[d] * sms, n_pairs * -(-smax // _TILE[torch.bfloat16])))
 
 
+def decode_cost(q, k_cache, lengths) -> tuple[float, float]:
+    """``(flops, bytes)`` of one kernel call, counted over every cache slot
+    (the lengths are device values): ``4 D`` a slot and q head, q, both
+    caches and the lengths read once, the output written once."""
+    B, Hq, D = q.shape
+    flops = 4.0 * B * Hq * D * k_cache.shape[1]
+    return flops, (2.0 * q.numel() * q.element_size() + 2.0 * k_cache.numel()
+                   * k_cache.element_size() + lengths.numel() * lengths.element_size())
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: float | None = None):
     """Decode attention; the CUDA kernel for tensors on the card, the plain
-    version for tensors on the CPU.  ``decode_attention.launches`` counts
-    kernel launches."""
+    version for tensors on the CPU, an empty output for fake tensors.
+    ``decode_attention.launches`` counts kernel launches."""
+    return roofline.kernel_call("decode_attention", lambda: decode_cost(q, k_cache, lengths),
+                                _decode_run, q, k_cache, v_cache, lengths, scale)
+
+
+def _decode_run(q, k_cache, v_cache, lengths, scale):
+    if isinstance(q, FakeTensor):
+        return torch.empty_like(q)
+    if isinstance(q, DTensor):
+        raise TypeError("decode_attention: the kernel takes one rank's local tensors, "
+                        "not a DTensor")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale)
     B, Hq, D = q.shape

@@ -13,6 +13,11 @@ Contract: query i sits at position ``i + Skv - Sq`` (right-aligned, as a
 prefill continuation), the kv head of q head h is ``h // (Hq // Hkv)``, and
 a row with no visible key gives 0.
 
+Counting: the wrapper reports the kernel's flops and bytes to an active
+``repro_torch.launch.roofline.CostCounter`` (:func:`flash_cost`); on fake
+tensors (a dry run's trace) it returns an empty output of the right shape
+and computes nothing.
+
 Gradients: :func:`flash_attention` runs through an autograd Function
 whose forward is that dispatch and whose backward is
 :func:`flash_attention_bwd`, written in PyTorch tensor ops and the same on
@@ -25,8 +30,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import build
+from repro_torch.launch import roofline
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _HEAD_SIZES = (64, 128)   # the kernel's D: seamless-m4t's heads and the others'
@@ -66,9 +74,41 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float | None =
     return out.to(q.dtype)
 
 
+def _visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the right-aligned causal mask lets through."""
+    if not causal:
+        return sq * skv
+
+    def f(n):   # sum over j = 1..n of min(j, skv)
+        if n <= 0:
+            return 0
+        m = min(n, skv)
+        return m * (m + 1) // 2 + (n - m) * skv
+
+    return f(skv) - f(skv - sq)
+
+
+def flash_cost(q, k, causal: bool) -> tuple[float, float]:
+    """``(flops, bytes)`` of one kernel call: ``4 D`` a visible pair and q
+    head (QK^T and PV), each input read once and the output written once."""
+    B, Sq, Hq, D = q.shape
+    flops = 4.0 * B * Hq * D * _visible_pairs(Sq, k.shape[1], causal)
+    return flops, 2.0 * q.numel() * q.element_size() + 2.0 * k.numel() * k.element_size()
+
+
 def _flash_forward(q, k, v, causal: bool, scale: float | None):
+    return roofline.kernel_call("flash_attention", lambda: flash_cost(q, k, causal), _flash_run,
+                                q, k, v, causal, scale)
+
+
+def _flash_run(q, k, v, causal: bool, scale: float | None):
     """The CUDA kernel for tensors on the card, the plain version for
-    tensors on the CPU."""
+    tensors on the CPU, an empty output for fake tensors."""
+    if isinstance(q, FakeTensor):
+        return torch.empty_like(q)
+    if isinstance(q, DTensor):
+        raise TypeError("flash_attention: the kernel takes one rank's local tensors, "
+                        "not a DTensor")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     B, Sq, Hq, D = q.shape

@@ -1,13 +1,51 @@
-"""Analytic per-step cost terms that the job profiles are built from.
+"""Per-step cost terms that the job profiles are built from.
 
-A copy of the parts of ``repro/launch/roofline.py`` that
-``core/profiles.py`` needs: the per-chip constants of the simulated TPU v5e
-pod the co-scheduling agent was trained against, and the analytic FLOP,
-HBM-byte and collective-byte counts of one model step.  The constants are
-inputs of the reference performance model, not measurements of the GPU the
-port runs on: schedule parity with the reference depends on keeping them.
+Port of ``repro/launch/roofline.py``: the per-chip constants of the
+simulated TPU v5e pod the co-scheduling agent was trained against, the
+roofline terms, and the analytic FLOP, HBM-byte and collective-byte counts
+of one model step.  The constants are inputs of the reference performance
+model, not measurements of the GPU the port runs on: schedule parity with
+the reference depends on keeping them.
+
+The reference reads a step's per-chip costs from its compiled HLO
+(``cost_analysis``, ``fusion_adjusted_bytes``, ``parse_collectives``).
+The port has no HLO: :class:`CostCounter` reads the ops a step runs, one
+rank's local ops (DTensor ops are let through to their local work):
+
+- **flops**: ``2 m n k`` of every matrix product (``mm``, ``addmm``,
+  ``bmm``, ``baddbmm``, ``mv``) on its local shapes, plus the kernels'
+  formulas.  Elementwise work is not counted.
+- **bytes**: operand + result bytes of the ops in :data:`MAJOR_OPS` (the
+  torch ops that stand for the reference's ``_MAJOR_OPS``: products,
+  gathers, scatters, sorts, reductions, concatenation, copies, the
+  collectives) plus the kernels' formulas; ``bytes_raw`` counts every op
+  that is not a view.  XLA fuses where eager torch does not, so neither
+  figure is expected to equal the reference's.
+- **collectives**: the ``_c10d_functional`` ops, by result bytes, with
+  the reference's weights and names (:func:`collective_stats`).
+- **memory**: bytes of the storages the step allocates, alive at once
+  (``peak``), above the ones that existed when it began.
+
+The kernels launch through ``ctypes`` on data pointers, out of a dispatch
+mode's sight, and their plain versions' block loops are not the kernel's
+work: each kernel wrapper reports its own flops and bytes through
+:func:`kernel_call` and runs with counting paused.  The flash kernel counts
+``4 B Hq D`` a visible (query, key) pair; decode counts every cache slot,
+``4 B Hq Smax D`` (its valid lengths are device values a counter must not
+wait for, and fake tensors have none: the reference's cost analysis also
+counts its dense decode attention over the whole cache).  DTensor's own
+sharding propagation runs ops on global fake tensors; they are skipped.
 """
 from __future__ import annotations
+
+import os
+import sys
+import weakref
+from dataclasses import dataclass, field
+
+import torch
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # --- simulated TPU v5e pod, per chip (performance-model inputs) ------------
 PEAK_FLOPS = 197e12          # bf16 FLOP/s
@@ -15,6 +53,234 @@ HBM_BW = 819e9               # bytes/s
 ICI_LINK_BW = 50e9           # bytes/s per link
 ICI_LINKS_PER_AXIS = 2       # bidirectional ring on one mesh axis
 ICI_BW = ICI_LINK_BW * ICI_LINKS_PER_AXIS
+HBM_BYTES = 16 * 1024**3     # 16 GiB HBM per chip
+
+_COLLECTIVE_WEIGHT = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+@dataclass
+class CollectiveStats:
+    bytes_weighted: float = 0.0
+    bytes_raw: float = 0.0
+    count: int = 0
+    by_op: dict = field(default_factory=dict)
+
+
+def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
+                   coll_bytes_weighted: float) -> dict:
+    ct = flops_per_chip / PEAK_FLOPS
+    mt = bytes_per_chip / HBM_BW
+    xt = coll_bytes_weighted / ICI_BW
+    dominant = max(("compute", ct), ("memory", mt), ("collective", xt), key=lambda kv: kv[1])
+    total = max(ct, mt, xt)
+    return {
+        "compute_term_s": ct,
+        "memory_term_s": mt,
+        "collective_term_s": xt,
+        "dominant": dominant[0],
+        "step_time_lb_s": total,  # overlap roofline: max of the three
+    }
+
+
+# ---------------------------------------------------------------------------
+# Counters over the ops a step runs (the HLO parsers' stand-ins)
+# ---------------------------------------------------------------------------
+
+# torch collective -> the reference's HLO opcode
+COLLECTIVE_NAMES = {
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def collective_stats(records) -> CollectiveStats:
+    """A :class:`CollectiveStats` of ``(torch name, result bytes)`` records
+    (:attr:`CostCounter.collectives` holds them), weighted as the
+    reference weighs HLO collectives (all-reduce x2)."""
+    stats = CollectiveStats()
+    for name, b, *_ in records:
+        op = COLLECTIVE_NAMES[name]
+        stats.bytes_raw += b
+        stats.bytes_weighted += b * _COLLECTIVE_WEIGHT[op]
+        stats.count += 1
+        agg = stats.by_op.setdefault(op, {"bytes": 0.0, "count": 0})
+        agg["bytes"] += b
+        agg["count"] += 1
+    return stats
+
+
+_aten = torch.ops.aten
+# The ops whose operands and results cross HBM, standing for the
+# reference's ``_MAJOR_OPS`` (dot, convolution, gather, scatter, sort,
+# reduce, dynamic-(update-)slice, concatenate, copy, collectives; fusions
+# and custom calls are the kernels, counted by their formulas).
+MAJOR_OPS = frozenset(getattr(_aten, n) for n in (
+    "mm", "addmm", "bmm", "baddbmm", "mv", "convolution",                    # dot, convolution
+    "gather", "index", "index_select", "embedding", "take_along_dim",       # gather
+    "scatter", "scatter_add", "index_put", "index_put_", "_index_put_impl_",  # scatter
+    "index_add", "index_add_", "embedding_dense_backward",
+    "sort", "topk", "argsort",                                               # sort
+    "sum", "mean", "amax", "amin", "max", "min", "logsumexp", "linalg_vector_norm",  # reduce
+    "var", "prod", "cumsum", "argmax", "argmin", "any", "all",
+    "cat", "stack", "slice_scatter", "select_scatter",                       # concatenate, dus
+    "copy", "copy_", "clone", "_to_copy",                                    # copy
+))
+
+
+def _mm_flops(func, args, out) -> float:
+    p = func._overloadpacket
+    if p in (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm):
+        a = args[0] if p in (_aten.mm, _aten.bmm) else args[1]
+        return 2.0 * out.numel() * a.shape[-1]
+    if p is _aten.mv:
+        return 2.0 * args[0].numel()
+    return 0.0
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for t in x:
+            yield from _tensors(t)
+
+
+_PROP_FILE = os.path.join("tensor", "_sharding_prop.py")
+
+
+def _in_sharding_prop() -> bool:
+    """Whether the op runs inside DTensor's sharding propagation (its
+    output-shape inference on global fake tensors, no rank's work)."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROP_FILE):
+            return True
+        f = f.f_back
+    return False
+
+
+_ACTIVE: list = []
+
+
+class CostCounter(TorchDispatchMode):
+    """Per-chip flops, bytes, collectives and memory of the ops run under
+    it (see the module docstring).  ``existing`` holds tensors whose
+    storages are there before the step (its arguments): they, their views
+    and in-place writes to them allocate nothing."""
+
+    def __init__(self, existing=()):
+        super().__init__()
+        self.flops = self.bytes = self.bytes_raw = 0.0
+        self.collectives: list[tuple[str, int, str]] = []   # (name, result bytes, group)
+        self.kernels: dict[str, list[float]] = {}           # name -> [calls, flops, bytes]
+        self.live = self.peak = 0
+        self._seen = weakref.WeakKeyDictionary()
+        self._paused = 0
+        for t in existing:
+            self._seen[t.untyped_storage()] = True
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _ACTIVE.remove(self)
+        return super().__exit__(*exc)
+
+    def track(self, out) -> None:
+        """Count the storages of ``out`` that are new as allocations."""
+        for t in _tensors(out):
+            if isinstance(t, DTensor):
+                t = t._local_tensor
+            s = t.untyped_storage()
+            if s in self._seen:
+                continue
+            n = s.nbytes()
+            self._seen[s] = True
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(s, self._free, n)
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented        # DTensor runs its local ops under this mode
+        out = func(*args, **kwargs)
+        if self._paused or _in_sharding_prop():
+            return out
+        if func.namespace == "_c10d_functional":
+            name = func._overloadpacket.__name__
+            if name in COLLECTIVE_NAMES:
+                b = _nbytes(out)
+                self.collectives.append((name, b, args[-1] if isinstance(args[-1], str) else ""))
+                self.bytes += b + _nbytes(args[0])
+            self.track(out)
+            return out
+        if func.namespace == "prim" or func.is_view:
+            return out
+        b = _nbytes(args) + _nbytes(list(kwargs.values())) + _nbytes(out)
+        self.bytes_raw += b
+        if func._overloadpacket in MAJOR_OPS:
+            self.bytes += b
+        self.flops += _mm_flops(func, args, out)
+        self.track(out)
+        return out
+
+    def add_kernel(self, name: str, flops: float, nbytes: float) -> None:
+        k = self.kernels.setdefault(name, [0, 0.0, 0.0])
+        k[0] += 1
+        k[1] += flops
+        k[2] += nbytes
+        self.flops += flops
+        self.bytes += nbytes
+        self.bytes_raw += nbytes
+
+    def stats(self) -> CollectiveStats:
+        return collective_stats(self.collectives)
+
+
+def kernel_call(name: str, cost, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a kernel launch or its plain version, with
+    its formula ``cost() -> (flops, bytes)`` added to every active
+    :class:`CostCounter` in place of the ops it runs (and not evaluated
+    when none is)."""
+    if not _ACTIVE:
+        return fn(*args, **kwargs)
+    counters = list(_ACTIVE)
+    flops, nbytes = cost()
+    for c in counters:
+        c.add_kernel(name, flops, nbytes)
+        c._paused += 1
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        for c in counters:
+            c._paused -= 1
+    for c in counters:
+        c.track(out)
+    return out
 
 
 # ---------------------------------------------------------------------------

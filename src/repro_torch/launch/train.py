@@ -4,12 +4,17 @@ resume, for any registry architecture whose batch the pipeline makes.
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m --scale full \\
         --batch 8 --seq 128 --steps 100 --ckpt-dir /tmp/ckpt --ckpt-every 50
 
-Port of ``repro/launch/train.py`` on one device: ``OptConfig()``'s
-defaults, ``init_params(cfg, 0)``, a markov ``DataPipeline`` from seed 0,
+Port of ``repro/launch/train.py``: ``OptConfig()``'s defaults,
+``init_params(cfg, 0)``, a markov ``DataPipeline`` from seed 0,
 ``make_train_step``, a resume from the latest committed checkpoint of
-``--ckpt-dir``, ``{"params", "opt"}`` saved every ``--ckpt-every`` steps,
-and the reference's lines.  The ``--mesh-*`` flags are not ported (one
-device); ``--device`` is added, as ``launch/serve.py`` has it.
+``--ckpt-dir``, ``{"params", "opt"}`` saved every ``--ckpt-every`` steps
+(full tensors), and the reference's lines; ``--device`` is added, as
+``launch/serve.py`` has it.  ``--mesh-data`` x ``--mesh-model`` (1 x 1 by
+default) is the step's mesh (``launch/mesh.py: launcher_mesh``): a family
+with sharded steps runs through them, on one device a 1 x 1 mesh; a
+larger mesh needs a world of its size (``torchrun``), and the launcher
+raises without one.  The other families run the one-device step, and
+refuse a larger mesh.
 
 The reference's resume fails for a bf16 model: its ``restore`` gives a bf16
 leaf back as a raw ``V2`` array, which ``jax.device_put`` refuses
@@ -21,6 +26,7 @@ then raises ``KeyError``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -29,8 +35,9 @@ from repro_torch import checkpoint as ck
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataPipeline, batch_to_device
 from repro_torch.models.model import init_params
-from repro_torch.optim import OptConfig, init_opt_state
-from repro_torch.runtime.steps import make_train_step
+from repro_torch.launch.mesh import launcher_mesh
+from repro_torch.optim import OptConfig, init_opt_state, tree_map
+from repro_torch.runtime.steps import SHARDED_FAMILIES, full, make_train_step, require_sharded
 
 
 def main(argv=None) -> dict | None:
@@ -45,6 +52,8 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.scale == "full" else get_smoke_config(args.arch)
@@ -52,9 +61,19 @@ def main(argv=None) -> dict | None:
         raise NotImplementedError(f"{cfg.name}: the data pipeline makes no encoder frames, and "
                                   "the reference's loss_fn needs them")
     device = torch.device(args.device)
-    print(f"arch={cfg.name} device={device} batch={args.batch} seq={args.seq}")
+    sharded = cfg.family in SHARDED_FAMILIES
+    if not sharded and (args.mesh_data, args.mesh_model) != (1, 1):
+        require_sharded(cfg)
+    with (launcher_mesh(args.mesh_data, args.mesh_model, device) if sharded
+          else contextlib.nullcontext()) as mesh:
+        return _train(args, cfg, device, mesh)
 
-    step_fn = make_train_step(cfg, OptConfig(), device)
+
+def _train(args, cfg, device, mesh):
+    where = "" if mesh is None else f" mesh={args.mesh_data}x{args.mesh_model}"
+    print(f"arch={cfg.name} device={device}{where} batch={args.batch} seq={args.seq}")
+
+    step_fn = make_train_step(cfg, OptConfig(), device, mesh=mesh)
     pipe = DataPipeline(cfg.vocab_size, args.seq, args.batch, seed=0, mode="markov")
     start = 0
     if args.ckpt_dir and ck.latest_step(args.ckpt_dir) is not None:
@@ -63,7 +82,9 @@ def main(argv=None) -> dict | None:
         print(f"resumed @ {start}")
     else:
         params = init_params(cfg, 0, device)
-        opt = init_opt_state(params)
+        opt = None if mesh is not None else init_opt_state(params)
+    if mesh is not None:
+        params, opt = step_fn.distribute(params, opt)
 
     metrics = None
     t0 = time.time()
@@ -74,7 +95,7 @@ def main(argv=None) -> dict | None:
             print(f"step {s:4d} loss={float(metrics['loss']):.3f} "
                   f"({(s - start + 1) / (time.time() - t0):.2f} it/s)")
         if args.ckpt_dir and (s + 1) % args.ckpt_every == 0:
-            ck.save(args.ckpt_dir, s + 1, {"params": params, "opt": opt})
+            ck.save(args.ckpt_dir, s + 1, tree_map(full, {"params": params, "opt": opt}))
     print("done")
     return metrics
 

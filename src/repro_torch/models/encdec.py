@@ -29,6 +29,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import ones_init, pdtype, rmsnorm
 from repro_torch.models.mlp import gelu_mlp_apply, init_gelu_mlp
 from repro_torch.models.transformer import _unstack, layer_params, zero_aux
+from repro_torch.sharding import constrain
 
 
 def init_enc_layer(generator, cfg, layers: int | None = None, device="cuda") -> dict:
@@ -45,7 +46,7 @@ def enc_layer_apply(p, x, cfg, positions):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     x = x + attn_apply(p["attn"], h, cfg, positions, causal=False)[0]
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + gelu_mlp_apply(p["mlp"], h)
+    return constrain(x + gelu_mlp_apply(p["mlp"], h), ("act_batch", "act_seq", "act_embed"))
 
 
 def init_dec_layer(generator, cfg, layers: int | None = None, device="cuda") -> dict:
@@ -66,7 +67,7 @@ def dec_layer_apply(p, x, enc_out, cfg, positions):
     h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
     x = x + attn_apply(p["xattn"], h, cfg, positions, causal=False, kv_src=enc_out)[0]
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + gelu_mlp_apply(p["mlp"], h)
+    return constrain(x + gelu_mlp_apply(p["mlp"], h), ("act_batch", "act_seq", "act_embed"))
 
 
 def init_encdec_stacks(generator, cfg, device="cuda") -> dict:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import causal_conv1d, conv1d_step, dense_init, pdtype
+from repro_torch.sharding import constrain
 
 
 def _dt_rank(cfg) -> int:
@@ -82,6 +83,7 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     chunk = min(mc.chunk, S)
 
     x1, z = (x @ p["w_in"]).chunk(2, dim=-1)                     # (B, S, D)
+    x1 = constrain(x1, ("act_batch", "act_seq", "act_mlp"))
     x1 = F.silu(causal_conv1d(x1, p["conv_w"], p["conv_b"]))
     dt, Bs, Cs = _ssm_inputs(p, x1, cfg)
     A = -torch.exp(p["A_log"])                                   # (D, N)

@@ -6,6 +6,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, pdtype
+from repro_torch.sharding import constrain
+
+# the hidden activation's logical axes: a sequence (B, S, F), or a decode step's (B, F)
+_MLP_AXES = {3: ("act_batch", "act_seq", "act_mlp"), 2: ("act_batch", "act_mlp")}
 
 
 def init_swiglu(generator, cfg, layers: int | None = None, device="cuda",
@@ -22,7 +26,8 @@ def init_swiglu(generator, cfg, layers: int | None = None, device="cuda",
 def swiglu_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ p["wg"])
     u = x @ p["wu"]
-    return (g * u) @ p["wd"]
+    h = constrain(g * u, _MLP_AXES[x.ndim])
+    return h @ p["wd"]
 
 
 def init_gelu_mlp(generator, cfg, layers: int | None = None, device="cuda",
@@ -38,4 +43,6 @@ def init_gelu_mlp(generator, cfg, layers: int | None = None, device="cuda",
 def gelu_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``gelu(x wu) wd`` with the tanh approximation (``jax.nn.gelu``'s
     default, ``approximate=True``)."""
-    return F.gelu(x @ p["wu"], approximate="tanh") @ p["wd"]
+    h = F.gelu(x @ p["wu"], approximate="tanh")
+    h = constrain(h, _MLP_AXES[x.ndim])
+    return h @ p["wd"]

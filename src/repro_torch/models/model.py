@@ -12,16 +12,28 @@ MLPs), vlm (the dense stack with QK-norm), hybrid (Jamba super-blocks), ssm
 (xLSTM pairs) and audio (the encoder-decoder of ``encdec.py``; its batches
 add ``"frames"`` (B, Se, M), and its prefill is the serve step's encoder
 pass, ``runtime/steps.py: make_prefill_step``).
+
+Under an active mesh (the sharded steps of ``runtime/steps.py``) the
+parameters and activations are DTensors and the ``constrain`` calls lay
+them out by the rule table; the tensors the model makes itself
+(positions, RoPE tables, masks, the zero aux) stay plain and count as
+replicated (``implicit_replication`` around the step), which issues no
+collective.  The embedding gather and the chunked CE over a vocab-sharded
+table run on local shards (:func:`_sharded_embed`, :func:`_sharded_lse_gold`).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import encdec, transformer as tfm
 from repro_torch.models.layers import embed_init, ones_init, pdtype, rmsnorm
+from repro_torch.sharding import constrain
+from repro_torch.sharding.specs import relayout, shard_offset
 
 
 PORTED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
@@ -56,13 +68,44 @@ def init_params(cfg, seed: int = 0, device="cuda") -> dict:
 
 
 def _embed(p, tokens, cfg):
-    return p["emb"][tokens].to(pdtype(cfg))
+    x = _sharded_embed(p["emb"], tokens) if isinstance(p["emb"], DTensor) else p["emb"][tokens]
+    return constrain(x.to(pdtype(cfg)), ("act_batch", "act_seq", "act_embed"))
+
+
+def _sharded_embed(emb, tokens):
+    """The gather from a vocab-sharded DTensor table: each rank gathers the
+    ids in its vocab shard (zero rows for the others), a ``Partial`` sum
+    over the vocab-sharding mesh dims that the caller's ``constrain``
+    reduces (the reference's GSPMD gather).  The table's gradient is that
+    rank's shard's, summed over the mesh dims that shard the batch.
+    (DTensor's own ``embedding`` rule cannot take its gradient back from a
+    ``Partial`` sum.)"""
+    mesh, e_pl = emb.device_mesh, list(emb.placements)
+    t_pl = list(tokens.placements) if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim
+    assert not any(isinstance(a, Shard) and a.dim == 1 for a in e_pl), e_pl
+    out_pl = [Partial() if isinstance(a, Shard) else b for a, b in zip(e_pl, t_pl)]
+    g_pl = [Partial() if isinstance(b, Shard) and not isinstance(a, Shard) else a
+            for a, b in zip(e_pl, t_pl)]
+    idx, n = shard_offset(mesh, e_pl, 0)
+
+    def local(e, tok):
+        if n == 1:
+            return e[tok]
+        tok = tok.long() - idx * e.shape[0]
+        mine = (tok >= 0) & (tok < e.shape[0])
+        return e[tok.clamp(0, e.shape[0] - 1)] * mine[..., None].to(e.dtype)
+
+    return local_map(local, out_placements=out_pl, in_placements=(e_pl, t_pl),
+                     in_grad_placements=(g_pl, t_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(emb, tokens)
 
 
 def _logits(p, x, cfg):
     h = rmsnorm(x, p["final_norm"], cfg.norm_eps)
     w = p["emb"].T if cfg.tie_embeddings else p["lm_head"]
-    return (h @ w.to(h.dtype)).float()
+    logits = (h @ w.to(h.dtype)).float()
+    return constrain(logits, ("act_batch", "act_seq", "act_vocab") if logits.ndim == 3
+                     else ("act_batch", "act_vocab"))
 
 
 # ===========================================================================
@@ -105,11 +148,49 @@ def _chunk_ce(params, x_c, labels_c, cfg):
     with torch.profiler.record_function("chunked_ce"):
         logits = _logits(params, x_c, cfg)                     # (B, sc, V) f32
         mask = (labels_c >= 0).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels_c.clamp_min(0).long()[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            lse, gold = _sharded_lse_gold(logits, labels_c)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels_c.clamp_min(0).long()[..., None])[..., 0]
         ce_sum = ((lse - gold) * mask).sum()
         z_sum = (lse * mask).square().sum()
         return ce_sum, z_sum, mask.sum()
+
+
+def _sharded_lse_gold(logits, labels):
+    """Log-sum-exp and gold logit of DTensor logits whose vocab dim may be
+    sharded, with no gather of the logits: the row max, the sum of
+    exponentials and the gold logit (each rank picks the ids in its vocab
+    shard) reduce over the vocab shards as (B, S) all-reduces, and stay
+    replicated there, with their gradients, so that the backward's
+    softmax meets the logits' own layout.  DTensor's own ``logsumexp`` and
+    ``gather`` would all-gather the logits; left to itself it also
+    reduce-scatters the rows over the vocab's mesh dims, and the backward
+    then gathers logits-sized tensors to meet them."""
+    mesh, l_pl = logits.device_mesh, list(logits.placements)
+    vocab = logits.ndim - 1
+    idx, n = shard_offset(mesh, l_pl, vocab)
+    row_pl = [Replicate() if isinstance(a, Shard) and a.dim == vocab else a for a in l_pl]
+    if n == 1:       # the vocab whole on each rank: the one-device formula
+        lse = torch.logsumexp(logits, dim=-1)
+    else:
+        m = relayout(logits.detach().amax(dim=-1, keepdim=True), row_pl)
+        lse = relayout((logits - m).exp().sum(dim=-1), row_pl).log() + m[..., 0]
+    labels = labels.clamp_min(0).long()
+    lab_pl = [a if isinstance(a, Shard) and a.dim < vocab else Replicate() for a in l_pl]
+    out_pl = [Partial() if isinstance(a, Shard) and a.dim == vocab else b
+              for a, b in zip(l_pl, lab_pl)]
+
+    def local(lg, lab):
+        lab = lab - idx * lg.shape[-1]
+        mine = (lab >= 0) & (lab < lg.shape[-1])
+        g = lg.gather(-1, lab.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return g * mine
+
+    gold = local_map(local, out_placements=out_pl, in_placements=(l_pl, lab_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return lse, relayout(gold, row_pl)
 
 
 def loss_fn(params, batch, cfg):

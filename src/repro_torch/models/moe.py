@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, pdtype
 from repro_torch.models.mlp import init_swiglu, swiglu_apply
+from repro_torch.sharding import constrain
 
 
 def init_moe(generator, cfg, layers: int | None = None, device="cuda") -> dict:
@@ -122,9 +123,13 @@ def _moe_apply(p: dict, x: torch.Tensor, cfg):
     buf = x.new_zeros((E, cap + 1, M))
     buf[sorted_ids, dst] = xf[order // K]                        # row cap: the spare row
     buf = buf[:, :cap]
+    # EP when the expert count divides the model axis; TP-of-experts otherwise
+    ep = E % 16 == 0
+    buf = constrain(buf, ("act_expert", None, None) if ep else (None, None, None))
 
     # ---- expert FFN, batched over experts -----------------------------------
     h = F.silu(torch.bmm(buf, p["experts_wg"])) * torch.bmm(buf, p["experts_wu"])
+    h = constrain(h, ("act_expert", None, None) if ep else (None, None, "act_mlp"))
     out_slots = torch.bmm(h, p["experts_wd"])                    # (E, cap, M)
 
     # ---- weighted combine, in token order, summed over K in f32 --------------

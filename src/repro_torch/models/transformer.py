@@ -28,6 +28,7 @@ from repro_torch.models.xlstm import (
     init_mlstm, init_mlstm_state, init_slstm, init_slstm_state, mlstm_apply, mlstm_decode,
     slstm_apply, slstm_decode,
 )
+from repro_torch.sharding import constrain
 
 
 def zero_aux(device) -> dict:
@@ -87,10 +88,10 @@ def decoder_layer_apply(p, x, cfg, positions):
     MoE aux (``None`` for a dense layer)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     a, k, v = attn_apply(p["attn"], h, cfg, positions)
-    x = x + a
+    x = constrain(x + a, ("act_batch", "act_seq", "act_embed"))
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     y, aux = _ffn_apply(p, h, cfg, None)
-    return x + y, k, v, aux
+    return constrain(x + y, ("act_batch", "act_seq", "act_embed")), k, v, aux
 
 
 def decoder_layer_decode(p, x_t, cache, pos, cfg):
@@ -218,7 +219,7 @@ def jamba_block_apply(p, x, cfg, positions):
             x = x + mamba_apply(lp["mamba"], h, cfg)
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         y, aux = _ffn_apply(lp, h, cfg, aux)
-        x = x + y
+        x = constrain(x + y, ("act_batch", "act_seq", "act_embed"))
     return x, aux
 
 

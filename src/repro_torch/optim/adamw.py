@@ -8,6 +8,14 @@ that copy, then the master rounded into the parameter.  At llama3-8b width
 the embedding alone holds 525M entries; the temporaries stay one leaf
 large.  The step count, the clip scale and the learning rate stay 0-dim
 f32 tensors on the parameters' device, so a step never waits for the host.
+
+DTensor leaves (a sharded train step): each gradient is first
+redistributed to its parameter's placements (the FSDP gradient
+reduce-scatter, or the all-reduce of a replicated leaf's ``Partial``
+sum), the global norm adds each leaf's local sum of squares over the
+shards (one rank sums exactly as one device does), and the fused pass runs on
+each rank's local shards; the optimizer state has the parameters'
+placements.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 
 @dataclass(frozen=True)
@@ -68,7 +77,7 @@ def lr_at(cfg: OptConfig, step) -> torch.Tensor:
 def init_opt_state(params: dict) -> dict:
     """f32 master copies of the parameters, zero f32 moments and a zero step count."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = tree_leaves(params)[0].device
     return {
@@ -79,11 +88,30 @@ def init_opt_state(params: dict) -> dict:
     }
 
 
+def _as_param(g, p):
+    """A DTensor gradient in its parameter's placements."""
+    return g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_norm(g) -> torch.Tensor:
+    """``||g||^2`` in f32; of a DTensor, the local shards' sums added over
+    the mesh dims that shard it (a replicated dim is counted once)."""
+    sq = torch.linalg.vector_norm(_local(g), dtype=torch.float32).square()
+    if isinstance(g, DTensor):
+        pl = [Partial() if p.is_shard() else Replicate() for p in g.placements]
+        sq = DTensor.from_local(sq, g.device_mesh, pl).full_tensor()
+    return sq
+
+
 @torch.no_grad()
 def global_norm(tree: dict) -> torch.Tensor:
     total = 0
     for g in tree_leaves(tree):
-        total = total + torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        total = total + _square_norm(g)
     return torch.sqrt(total)
 
 
@@ -101,12 +129,14 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptConfig):
     ``master * (1 - lr * wd)`` before the Adam step, and forms the bias
     corrections from the f32 step count in double precision."""
     count = state["count"] + 1
+    grads = tree_map(_as_param, grads, params)
     gnorm = global_norm(grads)
     inv_scale = torch.clamp((gnorm + 1e-9) / cfg.clip_norm, min=1.0)   # 1 / clip scale
     lr = lr_at(cfg, count)
     step = count.to(torch.float32)
 
     def upd(p, g, master, m, v):
+        p, g, master, m, v = (_local(t) for t in (p, g, master, m, v))
         g32 = g.to(torch.float32, copy=True)                # the pass divides it in place
         torch._fused_adamw_(
             [master], [g32], [m], [v], [], [step], lr=lr, beta1=cfg.b1, beta2=cfg.b2,

@@ -6,10 +6,11 @@ from repro_torch.runtime.elastic import (
 from repro_torch.runtime.lm_train import make_train_tenant
 from repro_torch.runtime.multitenant import FusedCoRunner, QuantumExecutor, Tenant, fuse_tenants
 from repro_torch.runtime.steps import (
-    abstract_state, batch_specs, make_decode_step, make_prefill_step, make_train_step, train_step,
+    abstract_state, batch_specs, make_decode_step, make_prefill_step, make_train_step,
+    train_input_specs, train_step,
 )
 
 __all__ = ["ElasticTrainer", "FailureEvent", "FusedCoRunner", "Mesh", "QuantumExecutor",
            "Tenant", "abstract_state", "batch_specs", "fuse_tenants", "make_decode_step",
            "make_mesh", "make_prefill_step", "make_train_step", "make_train_tenant",
-           "rebalance_bounds", "surviving_mesh", "train_step"]
+           "rebalance_bounds", "surviving_mesh", "train_input_specs", "train_step"]

@@ -1,16 +1,24 @@
-"""Train and serve step factories on one device.
+"""Train and serve step factories, on one device or on a mesh.
 
 Port of ``repro/runtime/steps.py``.  The reference jits each step with the
 ``NamedSharding`` trees of a mesh and donates the state: the train step
 its params and optimizer state, the decode step its cache.  Here a step is
-a callable on one device, and the donation is the in-place update (AdamW
-writes the params, master weights and moments in place; decode writes its
-cache row in place).  There are no meshes or shardings (multi-GPU is out
-of scope), so ``state_shardings``, ``train_input_specs``,
-``batch_specs_like`` and ``cache_shardings`` are not ported, and
-:func:`abstract_state` and :func:`batch_specs` give the abstract trees
-alone, as tensors on the ``meta`` device (shapes and dtypes, nothing
-allocated).
+a callable, and the donation is the in-place update (AdamW writes the
+params, master weights and moments in place; decode writes its cache row
+in place).  :func:`abstract_state` and :func:`batch_specs` give the
+abstract trees as tensors on the ``meta`` device (shapes and dtypes,
+nothing allocated).
+
+With ``mesh`` (a ``DeviceMesh`` of ``("data", "model")`` or ``("pod",
+"data", "model")``), a step takes its state as DTensors laid out by
+:func:`state_shardings` / :func:`cache_shardings` (:func:`distribute`
+cuts them from full tensors that every rank holds alike, collective-free),
+shards its batch by the ``act_batch`` rule, and runs the model under
+``use_mesh_rules`` and ``implicit_replication``: the tensors the model
+makes itself (positions, RoPE tables, masks, the zero aux) are plain
+tensors that count as replicated, which costs no collective.  A mesh of
+one rank is the one-device step through DTensors.  ``mesh=None`` is the
+one-device step.
 
 - :func:`make_train_step`: ``loss_fn``'s value and gradients by autograd,
   then ``adamw_update``; one step of every family (the audio family's
@@ -23,6 +31,8 @@ allocated).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models import encdec
 from repro_torch.models.layers import pdtype, rmsnorm
@@ -32,6 +42,33 @@ from repro_torch.models.model import (
 from repro_torch.optim import (
     OptConfig, adamw_update, init_opt_state, tree_leaves, tree_unflatten,
 )
+from repro_torch.sharding import (
+    DEFAULT_RULES, SEQ_PARALLEL_RULES, build_cache_specs, build_param_specs, named_sharding,
+    specs_to_shardings, use_mesh_rules,
+)
+from repro_torch.sharding.specs import shard_offset
+
+MODEL_AXIS_SIZE = 16  # model-axis width of both production meshes
+
+
+def _rules_for(cfg, rules=None):
+    if rules is not None:
+        return rules
+    return SEQ_PARALLEL_RULES if cfg.seq_parallel else DEFAULT_RULES
+
+
+def _ep_ok(cfg) -> bool:
+    return cfg.moe is None or cfg.moe.n_routed % MODEL_AXIS_SIZE == 0
+
+
+SHARDED_FAMILIES = ("dense",)
+
+
+def require_sharded(cfg) -> None:
+    """The families whose steps run on a mesh: the dense family so far."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the sharded steps of the {cfg.family} family "
+                                  "are not ported yet")
 
 
 def _check(what: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -52,17 +89,94 @@ def abstract_state(cfg, with_opt: bool = True):
     return params, (init_opt_state(params) if with_opt else None)
 
 
-def batch_specs(cfg, shape) -> dict:
+def state_shardings(cfg, mesh, rules=None, with_opt: bool = True):
+    """``(params, param shardings, opt_state, opt shardings)``: the abstract
+    state and a :class:`~repro_torch.sharding.specs.NamedSharding` a leaf
+    (the optimizer's master, m and v as the params; ``count`` replicated).
+    Without ``with_opt`` the last two are None."""
+    rules = _rules_for(cfg, rules)
+    params, opt = abstract_state(cfg, with_opt)
+    pspecs = build_param_specs(params, replicate_kv=cfg.n_kv_heads < cfg.n_heads,
+                               ep_experts=_ep_ok(cfg))
+    psh = specs_to_shardings(pspecs, mesh, rules, abstract_tree=params)
+    if not with_opt:
+        return params, psh, None, None
+    osh = {"master": psh, "m": psh, "v": psh, "count": named_sharding((), mesh, rules)}
+    return params, psh, opt, osh
+
+
+def batch_specs(cfg, shape, mesh=None, rules=None):
     """The abstract training batch of a ``ShapeConfig``, as ``meta``
     tensors: ``tokens`` and ``labels`` (B, S) int32; the audio family adds
-    ``frames`` (B, min(enc_len, S), d_model) in the model's dtype."""
+    ``frames`` (B, min(enc_len, S), d_model) in the model's dtype.  With a
+    mesh, ``(batch, shardings)`` as the reference returns them."""
     B, S = shape.global_batch, shape.seq_len
     batch = {k: torch.empty((B, S), dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
     if cfg.enc_dec:
         batch["frames"] = torch.empty((B, min(cfg.enc_len, S), cfg.d_model), dtype=pdtype(cfg),
                                       device="meta")
-    return batch
+    if mesh is None:
+        return batch
+    return batch, batch_specs_like(cfg, mesh, rules)[1]
+
+
+def batch_specs_like(cfg, mesh, rules=None):
+    """``(None, shardings)`` of a batch of any shape."""
+    rules = _rules_for(cfg, rules)
+    sh = {k: named_sharding(("act_batch", None), mesh, rules) for k in ("tokens", "labels")}
+    if cfg.enc_dec:
+        sh["frames"] = named_sharding(("act_batch", None, None), mesh, rules)
+    return None, sh
+
+
+def train_input_specs(cfg, shape, mesh, rules=None):
+    """All abstract inputs + shardings for train_step (dry-run entry)."""
+    params, psh, opt, osh = state_shardings(cfg, mesh, rules)
+    batch, bsh = batch_specs(cfg, shape, mesh, rules)
+    return {"params": params, "opt_state": opt, "batch": batch}, \
+           {"params": psh, "opt_state": osh, "batch": bsh}
+
+
+def cache_shardings(cfg, mesh, batch: int, max_len: int, rules=None):
+    """``(abstract cache, shardings)`` of a ``batch`` x ``max_len`` cache."""
+    rules = _rules_for(cfg, rules)
+    params, _ = abstract_state(cfg, with_opt=False)
+    cache = init_cache(params, cfg, batch, max_len)
+    cspecs = build_cache_specs(cache, replicate_kv=cfg.n_kv_heads < cfg.n_heads)
+    return cache, specs_to_shardings(cspecs, mesh, rules, abstract_tree=cache)
+
+
+def shard(t: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's shard of a full tensor ``t`` (every rank holds it
+    alike) as a DTensor of ``sharding``; no collective, and no copy where
+    nothing is cut.  A DTensor passes through."""
+    if isinstance(t, DTensor):
+        return t
+    pl = sharding.placements
+    for d in range(t.ndim):
+        idx, n = shard_offset(sharding.mesh, pl, d)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of a {tuple(t.shape)} tensor does not divide into {n} "
+                             f"shards ({sharding.spec})")
+        if n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, idx * size, size).contiguous()
+    return DTensor.from_local(t, sharding.mesh, pl, run_check=False)
+
+
+def distribute(tree, shardings):
+    """:func:`shard` over a tree of full tensors and its shardings tree
+    (``opt_state``'s 0-dim ``count`` stays a plain tensor)."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    return tree if tree.ndim == 0 else shard(tree, shardings)
+
+
+def full(t):
+    """The global tensor of a DTensor (a collective every rank must join);
+    a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def train_step(params, opt, batch, cfg, opt_cfg: OptConfig):
@@ -82,14 +196,37 @@ def train_step(params, opt, batch, cfg, opt_cfg: OptConfig):
     return params, opt, {**metrics, **om}
 
 
-def make_train_step(cfg, opt_cfg: OptConfig, device="cuda"):
+def make_train_step(cfg, opt_cfg: OptConfig, device="cuda", *, mesh=None, rules=None):
     """``step(params, opt, batch) -> (params, opt, metrics)``: :func:`train_step`
     on ``device`` for any batch size and length; ``batch`` holds ``tokens``
     and ``labels`` (B, S) and, for the audio family, ``frames`` (B, Se,
     d_model).  ``params`` and ``opt`` are updated in place (the
-    reference donates them)."""
+    reference donates them).
+
+    With ``mesh``: ``params`` and ``opt`` are DTensors
+    (``step.distribute(params, opt)`` lays out full tensors), the batch is
+    the global one (sharded here, or DTensors already), and the metrics
+    come back as plain tensors."""
     require_ported(cfg)
     device = torch.device(device)
+    if mesh is not None:
+        require_sharded(cfg)
+        rules = _rules_for(cfg, rules)
+        _, bsh = batch_specs_like(cfg, mesh, rules)
+
+        def sharded(params, opt, batch):
+            batch = {k: shard(v, bsh[k]) for k, v in batch.items()}
+            with use_mesh_rules(mesh, rules), implicit_replication():
+                params, opt, metrics = train_step(params, opt, batch, cfg, opt_cfg)
+            return params, opt, {k: full(v) for k, v in metrics.items()}
+
+        def dist_state(params, opt=None):
+            _, psh, _, osh = state_shardings(cfg, mesh, rules)
+            params = distribute(params, psh)
+            return params, (init_opt_state(params) if opt is None else distribute(opt, osh))
+
+        sharded.distribute = dist_state
+        return sharded
 
     def step(params, opt, batch):
         tokens = batch["tokens"]
@@ -108,12 +245,35 @@ def make_train_step(cfg, opt_cfg: OptConfig, device="cuda"):
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def make_decode_step(cfg, batch: int, max_len: int, device="cuda"):
+def make_decode_step(cfg, batch: int, max_len: int, device="cuda", *, mesh=None, rules=None):
     """``step(params, cache, token, pos) -> (logits (B, V) f32, cache)`` for
     ``batch`` sequences against a ``max_len``-slot cache (``step.init_cache
-    (params)`` makes one); the cache is updated in place."""
+    (params)`` makes one); the cache is updated in place.
+
+    With ``mesh``: DTensor params (``step.distribute(params)``) and cache
+    (``step.init_cache``), global ``token`` and ``pos``; the logits come
+    back as a DTensor laid out by ``("act_batch", "act_vocab")``."""
     require_ported(cfg)
     device = torch.device(device)
+    if mesh is not None:
+        require_sharded(cfg)
+        rules = _rules_for(cfg, rules)
+        vec = specs_to_shardings(("act_batch",), mesh, rules,
+                                 torch.empty((batch,), device="meta"))   # batch 1 replicated
+
+        def sharded(params, cache, token, pos):
+            token, pos = shard(token, vec), shard(pos, vec)
+            with use_mesh_rules(mesh, rules), implicit_replication():
+                return decode_step(params, cache, token, pos, cfg)
+
+        def init(params):
+            with use_mesh_rules(mesh, rules):
+                return init_cache(params, cfg, batch, max_len)
+
+        sharded.init_cache = init
+        sharded.distribute = lambda params: distribute(
+            params, state_shardings(cfg, mesh, rules, with_opt=False)[1])
+        return sharded
 
     def step(params, cache, token, pos):
         _check("token", token, (batch,), device)
@@ -124,7 +284,7 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda"):
     return step
 
 
-def make_prefill_step(cfg, shape, device="cuda"):
+def make_prefill_step(cfg, shape, device="cuda", *, mesh=None, rules=None):
     """``step(params, tokens) -> (last logits (B, V) f32, cache)`` for a
     ``ShapeConfig``'s (global_batch, seq_len) tokens.
 
@@ -135,6 +295,18 @@ def make_prefill_step(cfg, shape, device="cuda"):
     require_ported(cfg)
     device = torch.device(device)
     B, S = shape.global_batch, shape.seq_len
+    if mesh is not None:
+        require_sharded(cfg)
+        rules = _rules_for(cfg, rules)
+        tok = named_sharding(("act_batch", None), mesh, rules)
+
+        def sharded(params, tokens):
+            with use_mesh_rules(mesh, rules), implicit_replication():
+                return prefill(params, shard(tokens, tok), cfg, max_len=S)
+
+        sharded.distribute = lambda params: distribute(
+            params, state_shardings(cfg, mesh, rules, with_opt=False)[1])
+        return sharded
 
     if cfg.enc_dec:
         @torch.no_grad()

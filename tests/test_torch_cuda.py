@@ -599,3 +599,52 @@ def test_vecsim_sweep_on_card_matches_cpu(card):
         assert [(r.group_size, r.partition, r.units, r.backfilled) for r in rc.jobs] == \
             [(r.group_size, r.partition, r.units, r.backfilled) for r in rp.jobs]
         assert [s.slices for s in rc.timeline] == [s.slices for s in rp.timeline]
+
+
+def test_sharded_steps_on_a_1x1_mesh_equal_the_one_device_steps(card):
+    """``chip_smoke.py`` phase 11 (b) at a smoke size: prefill, two decode
+    steps and a train step through DTensors on a 1 x 1 mesh (a world of one
+    NCCL rank) equal the ``mesh=None`` steps bit for bit, and launch the
+    flash and decode kernels inside ``local_map``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import launcher_mesh
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves, tree_map
+    from repro_torch.runtime.steps import (
+        full, make_decode_step, make_prefill_step, make_train_step,
+    )
+
+    cfg = _small_cfg()
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), generator=g, dtype=torch.int32).to(card)
+    batch = {"tokens": tokens, "labels": tokens}
+    shape = ShapeConfig("t", 24, 2, "prefill")
+    pos = torch.tensor([3, 17], dtype=torch.int32, device=card)
+    params = tm.init_params(cfg, seed=5, device=card)
+
+    def run(mesh):
+        p = tree_map(torch.clone, params)
+        pf = make_prefill_step(cfg, shape, card, mesh=mesh)
+        dec = make_decode_step(cfg, 2, 24, card, mesh=mesh)
+        tr = make_train_step(cfg, OptConfig(), card, mesh=mesh)
+        if mesh is None:
+            opt = init_opt_state(p)
+        else:
+            p, opt = tr.distribute(p)
+        flash, decode = flash_attention.launches, decode_attention.launches
+        logits, _ = pf(p, tokens)
+        cache = dec.init_cache(p)
+        outs = [full(logits)]
+        for i in range(2):
+            lg, cache = dec(p, cache, tokens[:, i], pos + i)
+            outs.append(full(lg))
+        p, opt, m = tr(p, opt, batch)
+        torch.cuda.synchronize()
+        outs += [m["loss"]] + [full(t) for t in tree_leaves(p)]
+        return outs, flash_attention.launches - flash, decode_attention.launches - decode
+
+    ref, rf, rd = run(None)
+    with launcher_mesh(1, 1, card) as mesh:
+        got, gf, gd = run(mesh)
+    assert (gf, gd) == (rf, rd) == (cfg.n_layers * 3, cfg.n_layers * 2)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -50,10 +50,13 @@ SLICE_8 = {"repro_torch.models.mamba", "repro_torch.models.moe", "repro_torch.ru
            "repro_torch.launch.serve"}
 # the audio (encoder-decoder) family
 SLICE_9 = {"repro_torch.models.encdec"}
-# training every family: checkpoints, the launchers and the elastic loop; 72 modules in all
+# training every family: checkpoints, the launchers and the elastic loop
 SLICE_10 = {"repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
             "repro_torch.launch.schedule", "repro_torch.launch.train",
             "repro_torch.runtime.elastic"}
+# the multi-device layer: sharding rules, meshes and the dry run; 76 modules in all
+SLICE_11 = {"repro_torch.sharding", "repro_torch.sharding.specs", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"}
 
 
 def test_repro_torch_imports_without_jax_or_repro():
@@ -62,5 +65,5 @@ def test_repro_torch_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
-    slices = SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9 | SLICE_10
-    assert len(names) >= 72 and slices <= names, out.stdout
+    slices = SLICE_2 | SLICE_5 | SLICE_6 | SLICE_7 | SLICE_8 | SLICE_9 | SLICE_10 | SLICE_11
+    assert len(names) >= 76 and slices <= names, out.stdout
