@@ -57,7 +57,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
    co-run must equal the solo runs' within the stated bounds.  (d) Step 4
    of ``examples/co_schedule.py`` as written: that llama train tenant
    (share 0.75, 24 steps) beside an xlstm-125m train tenant at full width
-   and depth (share 0.25, 8 steps, 32 x 1024 markov tokens, the zoo's
+   and depth (share 0.25, 4 steps, 32 x 1024 markov tokens, the zoo's
    ``train_4k`` shape for that job) on two streams, then each alone; it
    fails unless the co-run launched exactly 2 x 4 x 24 flash kernels and no
    other hand-written kernel, each tenant's co-run losses equal its solo
@@ -89,7 +89,7 @@ Phases, each of which stops the run with a non-zero exit on failure:
    on the CPU: actions, masks and valid flags equal, buckets within 1e-5;
    then phase 6's trace under ``OnlineRetrainer(reward="queueing")`` with
    ``default_retrain_online_config()``, warm-started from phase 4's agent,
-   every 30 simulated minutes: it must fire and hot-swap.
+   every 60 simulated minutes: it must fire and hot-swap.
 8. Serving the moe, hybrid and vlm families.  (a) The smoke configs of
    deepseek-moe-16b, qwen2-moe-a2.7b, jamba-v0.1-52b and chameleon-34b at
    D=128, f32 with TF32 off, card against CPU: the loss, ``moe_aux`` and
@@ -182,6 +182,29 @@ Phases, each of which stops the run with a non-zero exit on failure:
    formulas) as the dry run of the same step on the same mesh, and the dry
    run's peak bytes must lie within [0.8, 1.25] of the card's (the step's
    arguments plus ``max_memory_allocated`` above what was resident).
+12. The multi-device layer of the other families.  (a) The dry run of one
+   cell a family on the pod mesh (256 fake ranks, baseline rules): the
+   train_4k cell of qwen2-moe-a2.7b (experts split along their hidden dim,
+   with the backward), the decode_32k cells of deepseek-moe-16b (experts
+   sharded over "model", the gather route of the MoE decode),
+   jamba-v0.1-52b, chameleon-34b and xlstm-125m, and seamless-m4t's
+   prefill_32k (the encoder pass), each in a process of its own
+   (``python -m repro_torch.launch.dryrun``), all at once and beside (b).
+   Each record is checked as phase 11's are (ok, argument bytes == the spec
+   trees', full-trace flops == differenced within 1e-6); then
+   ``make_zoo(dryrun_dir=...)`` over phases 11 and 12's records must take
+   each of the zoo's jobs among those cells from its record, and the golden
+   agent schedules that zoo's paper queues on the card and the CPU.  (b)
+   On a 1 x 1 mesh: qwen2-moe-a2.7b's decode job (batch 8 against 4096
+   slots, all 24 layers, 8 steps at ragged starts) and its train step at 4
+   of 24 layers (1 x 4096); jamba at 1 of 4 super-blocks, prefill 1 x 8192
+   and 8 decode steps at batch 8 against 32768 slots; chameleon-34b at 16
+   of 48 layers, 8 decode steps at batch 1 against 4096 slots;
+   seamless-m4t-large-v2, no cut, the encoder pass on 16 x 4096 frames,
+   then 8 decode steps against its cache (8192 self slots); xlstm-125m, no
+   cut, 8 decode steps at batch 8.  Each is held as phase 11 (b)'s cases
+   are (bit for bit, its attention kernel launched, flops == the dry run's
+   full trace, peak ratio in [0.8, 1.25]).
 
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1118,7 +1141,7 @@ def phase_lm_pair(torch, card):
 # (d) step 4 of examples/co_schedule.py as written: the llama train tenant
 # of (b) beside an xlstm-125m train tenant at full width, on the zoo's own
 # shape for that job ("xlstm-125m", "train_4k", 8, 4): 32 x 1024 tokens
-XLSTM_STEPS, XLSTM_SEED = 8, 33
+XLSTM_STEPS, XLSTM_SEED = 4, 33      # each xLSTM step takes some 9-13 s, host-bound
 STEP4_SHARES = {"train": 0.75, "xlstm": 0.25}
 
 
@@ -1162,7 +1185,7 @@ def device_launches(torch, fn) -> tuple[int, float]:
 
 def phase_step4_pair(torch, card):
     """(d) The llama train tenant of (b) (share 0.75, 24 steps) co-run with
-    the xlstm-125m train tenant (share 0.25, 8 steps) on two streams, then
+    the xlstm-125m train tenant (share 0.25, XLSTM_STEPS steps) on two streams, then
     each alone; then one more xLSTM step under the profiler, for its
     launches and its device time."""
     from repro_torch.models.model import count_params_analytic
@@ -1281,6 +1304,7 @@ def phase_xlstm_reference(torch, card):
 
 # phase 6: examples/online_cluster.py's defaults
 ONLINE_ARRIVALS, ONLINE_LOAD, ONLINE_RETRAIN_S = 80, 1.25, 1800.0
+VECSIM_RETRAIN_S = 2 * ONLINE_RETRAIN_S    # phase 7 (d): a cycle an hour (25-30 s each)
 
 
 def phase_online(torch, card, agent):
@@ -1566,7 +1590,7 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
     pol = RLDispatchPolicy(warm, env_cfg)
     retrainer = OnlineRetrainer(policy=pol, reward="queueing",
                                 online_cfg=default_retrain_online_config(),
-                                interval_s=ONLINE_RETRAIN_S)
+                                interval_s=VECSIM_RETRAIN_S)
     cycle_s = []
 
     def on_tick(now, sim):
@@ -1576,7 +1600,7 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
             cycle_s.append(time.perf_counter() - t0)
 
     res, sec = timed(torch, lambda: ClusterSimulator(
-        pol, SimConfig(window=TRAIN_WINDOW, tick_interval_s=ONLINE_RETRAIN_S),
+        pol, SimConfig(window=TRAIN_WINDOW, tick_interval_s=VECSIM_RETRAIN_S),
         on_tick=on_tick).run(trace))
     if not retrainer.history or pol.agent is warm:
         fail("the queueing-reward retrainer never fired or never hot-swapped the agent")
@@ -2710,6 +2734,12 @@ def spec_tree_bytes(torch, cfg, shape, mesh) -> int:
         batch, bsh = batch_specs(cfg, shape, mesh)
         return leaf_bytes(params, psh) + leaf_bytes(opt, osh) + leaf_bytes(batch, bsh)
     params, psh, _, _ = state_shardings(cfg, mesh, with_opt=False)
+    if shape.kind == "prefill" and cfg.enc_dec:      # the encoder pass: frames and their lengths
+        inp = {"frames": torch.empty((B, min(cfg.enc_len, S), cfg.d_model), dtype=torch.bfloat16,
+                                     device="meta"),
+               "enc_lens": torch.empty((B,), dtype=torch.int32, device="meta")}
+        return leaf_bytes(params, psh) + leaf_bytes(inp, specs_to_shardings(
+            {"frames": ("act_batch", None, None), "enc_lens": ("act_batch",)}, mesh, None, inp))
     if shape.kind == "prefill":
         tok = {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}
         return leaf_bytes(params, psh) + leaf_bytes(
@@ -2774,14 +2804,16 @@ def phase_dryrun(torch, card, work: Path) -> None:
         f"greedy actions card == CPU  ({card})")
 
 
-def sharded_case(torch, card, tag: str, cfg, shape, run_plain, prepare_mesh, mesh) -> dict:
+def sharded_case(torch, card, tag: str, cfg, shape, run_plain, prepare_mesh, mesh,
+                 phase: str = "[11] (b)", cost_extract: bool = True) -> dict:
     """One (b) case: the ``mesh=None`` run, then the 1 x 1 mesh run under the
     cost counter (kernel launches counted, peak memory above what was
     resident before it), then the dry run of the same step on the same mesh
-    (fake tensors).  ``run_plain()`` gives the outputs; ``prepare_mesh()``
-    gives ``(args, run)``: the step's argument tensors, made, and
-    ``run(counter) -> outputs``."""
-    from repro_torch.launch.dryrun import trace_cell
+    (fake tensors; without ``cost_extract`` its full trace alone).
+    ``run_plain()`` gives the outputs; ``prepare_mesh()`` gives ``(args,
+    run)``: the step's argument tensors, made, and ``run(counter) ->
+    outputs``."""
+    from repro_torch.launch.dryrun import trace_cell, trace_step
     from repro_torch.launch.roofline import CostCounter
 
     ref = run_plain()
@@ -2801,11 +2833,16 @@ def sharded_case(torch, card, tag: str, cfg, shape, run_plain, prepare_mesh, mes
     card_temp = torch.cuda.max_memory_allocated() - before
     launches = read_launches()
     t1 = time.perf_counter()
-    dry = trace_cell(cfg, shape, mesh, device="cuda")
+    if cost_extract:
+        dry = trace_cell(cfg, shape, mesh, device="cuda")
+    else:
+        a = trace_step(cfg, shape, mesh, device="cuda")
+        dry = {"flops_per_chip": a["flops"], "flops_per_chip_full": a["flops"],
+               "temp_bytes": a["temp_bytes"], "peak_bytes": a["argument_bytes"] + a["temp_bytes"]}
     dry_s = time.perf_counter() - t1
     real = counter.flops
     ratio = dry["peak_bytes"] / (arg_bytes + card_temp)
-    say(f"[11] (b) {tag}: launches {launches}; {ms:.1f} ms on the mesh (counted); flops "
+    say(f"{phase} {tag}: launches {launches}; {ms:.1f} ms on the mesh (counted); flops "
         f"counted on the card {real:.6e}, dry run at 1 x 1 {dry['flops_per_chip']:.6e} "
         f"(full trace {dry['flops_per_chip_full']:.6e}); temp: dry run "
         f"{dry['temp_bytes'] / 2**30:.3f} GiB, card {card_temp / 2**30:.3f} GiB; peak: dry run "
@@ -2824,7 +2861,7 @@ def sharded_case(torch, card, tag: str, cfg, shape, run_plain, prepare_mesh, mes
         if not torch.equal(a, b):
             fail(f"{tag}: output {i} of the 1 x 1 mesh step differs from the mesh=None step's "
                  f"(max abs {(a.float() - b.float()).abs().max().item():.3e})")
-    say(f"[11] (b) {tag}: {len(ref)} outputs equal the mesh=None step's bit for bit")
+    say(f"{phase} {tag}: {len(ref)} outputs equal the mesh=None step's bit for bit")
     return launches
 
 
@@ -2947,18 +2984,12 @@ def phase_sharded_steps(torch, card) -> dict:
     return {name: sum(v[name] for v in launches.values()) for name in launches["prefill"]}
 
 
-def phase_multi_device(torch, card) -> dict:
-    """Phase 11; returns the kernel launches of its sharded steps (b)."""
-    import shutil
-    import tempfile
-
+def phase_multi_device(torch, card, work: Path) -> dict:
+    """Phase 11 (its records into ``work``); returns the kernel launches of
+    its sharded steps (b)."""
     t_phase = time.perf_counter()
     free(torch)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
-    try:
-        phase_dryrun(torch, card, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    phase_dryrun(torch, card, work)
     t_a = time.perf_counter() - t_phase
     launches = phase_sharded_steps(torch, card)
     say(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s), launches "
@@ -2966,12 +2997,310 @@ def phase_multi_device(torch, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded steps and dry-run cells of the other families
+# ---------------------------------------------------------------------------
+
+# one cell a family: the zoo's base cells, and seamless's encoder pass
+FAMILY_DRYRUN_CELLS = (("qwen2-moe-a2.7b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+                       ("jamba-v0.1-52b", "decode_32k"), ("chameleon-34b", "decode_32k"),
+                       ("xlstm-125m", "decode_32k"), (SEAMLESS, "prefill_32k"))
+SHARDED_SEED, SHARDED_STEPS = 61, 8
+
+
+def record_path(work: Path, arch: str, shape_id: str, mesh_kind: str = "pod") -> Path:
+    """Where ``repro_torch.launch.dryrun`` writes a cell's record."""
+    return work / (f"{arch}_{shape_id}_{mesh_kind}_baseline".replace(".", "_") + ".json")
+
+
+def start_family_dryruns(work: Path) -> list:
+    """(a) Each cell's dry run on the pod mesh (a fake world of 256 ranks),
+    one process a cell, all started at once: ``repro_torch.launch.dryrun``
+    writes its record into ``work``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape_id in FAMILY_DRYRUN_CELLS:
+        log = open(work / f"{arch}_{shape_id}.log", "w")
+        procs.append((arch, shape_id, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape_id, "--mesh", "pod", "--out", str(work)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)))
+    return procs
+
+
+def finish_family_dryruns(torch, card, work: Path, procs: list) -> None:
+    """(a) Each cell's record, checked as phase 11 checks its own; then the
+    zoo from phase 11's and these records, and the golden agent scheduling
+    its paper queues on the card and the CPU."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core import make_zoo
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    for arch, shape_id, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        tag = f"[12] (a) {arch} x {shape_id} x pod (256 fake ranks)"
+        path = record_path(work, arch, shape_id)
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if rc != 0 or not rec.get("ok"):
+            fail(f"{tag}: {rec.get('error', f'exit code {rc}')}\n{rec.get('traceback', '')}\n"
+                 f"{(work / f'{arch}_{shape_id}.log').read_text()[-3000:]}")
+        with fake_world(rec["chips"]):
+            want = spec_tree_bytes(torch, get_config(arch), get_shape(shape_id),
+                                   make_production_mesh(device_type="cpu"))
+        full, lin = rec["flops_per_chip_full"], rec["flops_per_chip"]
+        say(f"{tag}: args {rec['argument_bytes'] / 2**30:.3f} GiB (spec trees "
+            f"{want / 2**30:.3f}), temp {rec['temp_bytes'] / 2**30:.3f} GiB, peak "
+            f"{rec['peak_bytes'] / 2**30:.3f} GiB, fits 16 GiB {rec['fits_hbm']}; per chip flops "
+            f"{lin:.6e} differenced over {rec['scan_units']} units (full trace {full:.6e}), "
+            f"bytes {rec['bytes_per_chip']:.6e}, collectives {rec['coll_bytes_weighted']:.6e} B "
+            f"weighted ({ {k: v['count'] for k, v in rec['coll_by_op_full'].items()} } in the "
+            f"full trace), kernels { {k: int(v[0]) for k, v in rec['kernels_full'].items()} }; "
+            f"roofline {rec['dominant']} {rec['step_time_lb_s'] * 1e3:.3f} ms, useful flops "
+            f"{rec['useful_flops_ratio']:.3f}; traces {rec['compile_s']:.1f} + "
+            f"{rec['trace_s_units'][0]:.1f} + {rec['trace_s_units'][1]:.1f} s")
+        if rec["argument_bytes"] != want:
+            fail(f"{tag}: argument bytes {rec['argument_bytes']} != the spec trees' {want}")
+        if abs(full - lin) > FLOPS_LINEAR_TOL * lin:
+            fail(f"{tag}: full-trace flops {full:.6e} != differenced {lin:.6e}")
+
+    zoo = make_zoo(dryrun_dir=str(work))
+    want_jobs = {(a, s) for a, s in FAMILY_DRYRUN_CELLS if a != SEAMLESS} | {
+        (DRYRUN_ARCH, s) for s, m in DRYRUN_CELLS if m == "pod"}
+    got = {(j.arch, j.shape) for j in zoo if j.meta.get("source") == "dryrun"}
+    if got != want_jobs:
+        fail(f"the zoo's jobs from the dry runs: {sorted(got)}, expected {sorted(want_jobs)}")
+    actions, schedules = golden_schedules(zoo)
+    say(f"[12] (a) make_zoo(dryrun_dir): {len(got)} jobs from phases 11 and 12's records "
+        f"({', '.join(f'{a}:{s}' for a, s in sorted(got))}); {len(schedules)} paper queues "
+        f"scheduled, every schedule valid, {len(actions)} greedy actions card == CPU  ({card})")
+
+
+def phase_family_sharded(torch, card) -> dict:
+    """(b) Each family's steps through the sharded factories on a 1 x 1 mesh
+    (a world of one NCCL rank), at the widths and depths of phases 8-10."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import SHAPES, get_config, scaled_shape
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import launcher_mesh
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.optim import OptConfig, init_opt_state, tree_leaves, tree_map
+    from repro_torch.runtime.steps import (
+        cache_shardings, distribute, full, make_decode_step, make_prefill_step, make_train_step,
+    )
+
+    def local(tree):
+        return [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(tree)]
+
+    def flat(out):
+        if isinstance(out, dict):                     # the encoder pass: a cache
+            return [full(t) for t in tree_leaves(out)]
+        logits, cache = out
+        return [full(logits)] + [full(t) for t in tree_leaves(cache)]
+
+    launches = []
+    with launcher_mesh(1, 1, "cuda") as mesh:
+        def case(tag, cfg, shape, plain, meshed):
+            launches.append(sharded_case(torch, card, tag, cfg, shape, plain, meshed, mesh,
+                                         phase="[12] (b)", cost_extract=False))
+            free(torch)
+
+        def prefill(tag, cfg, shape, params, inputs):
+            def plain():
+                return flat(make_prefill_step(cfg, shape)(params, *inputs))
+
+            def meshed():
+                step = make_prefill_step(cfg, shape, mesh=mesh)
+                dp = step.distribute(params)
+
+                def run(counter):
+                    with counter:
+                        return flat(step(dp, *inputs))
+
+                return tree_leaves(params) + list(inputs), run
+
+            case(tag, cfg, shape, plain, meshed)
+
+        def decode(tag, cfg, shape, params, first_cache):
+            """``SHARDED_STEPS`` steps from ``first_cache()`` (made anew for
+            each run) at ragged starts."""
+            B, smax = shape.global_batch, shape.seq_len
+            starts = torch.tensor(ragged_starts(B, smax, SHARDED_STEPS), dtype=torch.int32,
+                                  device="cuda")
+            tok0 = torch.randint(0, cfg.vocab_size, (B,), device="cuda",
+                                 generator=torch.Generator("cuda").manual_seed(SHARDED_SEED))
+
+            def run(step, p, cache, counter=None):
+                outs, tok, pos = [], tok0, starts
+                for _ in range(SHARDED_STEPS):
+                    with counter if counter is not None else contextlib.nullcontext():
+                        logits, cache = step(p, cache, tok, pos)
+                    logits = full(logits)
+                    tok, pos = logits.argmax(dim=-1), pos + 1
+                    outs.append(logits)
+                return outs + [full(t) for t in tree_leaves(cache)]
+
+            def plain():
+                return run(make_decode_step(cfg, B, smax), params, first_cache())
+
+            def meshed():
+                step = make_decode_step(cfg, B, smax, mesh=mesh)
+                dp = step.distribute(params)
+                cache = distribute(first_cache(), cache_shardings(cfg, mesh, B, smax)[1])
+
+                def go(counter):
+                    outs = run(step, dp, cache, counter)
+                    counter.flops /= SHARDED_STEPS     # one step's, as the dry run traces one
+                    return outs
+
+                return tree_leaves(params) + local(cache) + [tok0, starts], go
+
+            case(tag, cfg, shape, plain, meshed)
+
+        def noisy_cache(cfg, params, shape):
+            """A zero cache whose attention K/V hold a seeded draw."""
+            def make():
+                cache = init_cache(params, cfg, shape.global_batch, shape.seq_len)
+                g = torch.Generator("cuda").manual_seed(SHARDED_SEED + 1)
+                for kv in (cache.get("attn", cache),):
+                    for name in ("k", "v"):
+                        if name in kv:
+                            kv[name].normal_(generator=g)
+                return cache
+            return make
+
+        say(f"[12] (b) a world of {torch.distributed.get_world_size()} rank "
+            f"({torch.distributed.get_backend()}), mesh "
+            f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+        gen = torch.Generator("cuda").manual_seed(SHARDED_SEED)
+
+        # qwen2-moe-a2.7b: phase 8 (b)'s decode job, all 24 layers
+        arch, shape_name, bdiv, sdiv = MOE_JOB
+        cfg = get_config(arch)
+        shape = scaled_shape(SHAPES[shape_name], bdiv, sdiv)
+        params = init_params(cfg, seed=SHARDED_SEED)
+        decode(f"{arch} decode batch {shape.global_batch} x {shape.seq_len} slots, "
+               f"{SHARDED_STEPS} steps (decode_attention)", cfg, shape, params,
+               noisy_cache(cfg, params, shape))
+        del params
+        free(torch)
+
+        # qwen2-moe-a2.7b: phase 10 (c)'s train step, 4 of 24 layers, 1 x 4096
+        tcfg, batch = wide_train_batch(torch, "qwen2-moe-a2.7b", WIDE_TRAIN[0][1])
+        tshape = ShapeConfig("train", batch["tokens"].shape[1], 1, "train")
+        opt_cfg = OptConfig(**LM_TRAIN_OPT)
+
+        def train_plain():
+            p = init_params(tcfg, seed=SHARDED_SEED)
+            p, _, m = make_train_step(tcfg, opt_cfg)(p, init_opt_state(p), batch)
+            return [m["loss"], m["grad_norm"]] + [t.detach() for t in tree_leaves(p)]
+
+        def train_mesh():
+            step = make_train_step(tcfg, opt_cfg, mesh=mesh)
+            state = list(step.distribute(init_params(tcfg, seed=SHARDED_SEED)))
+
+            def run(counter):
+                with counter:
+                    p, _, m = step(*state, batch)
+                state.clear()
+                return [m["loss"], m["grad_norm"]] + [full(t).detach() for t in tree_leaves(p)]
+
+            p, opt = state
+            return local(p) + local({k: v for k, v in opt.items() if k != "count"}) + [
+                opt["count"]] + list(batch.values()), run
+
+        case(f"{tcfg.name} train {tcfg.n_layers} of 24 layers, 1 x {tshape.seq_len} "
+             "(flash_attention)", tcfg, tshape, train_plain, train_mesh)
+
+        # jamba-v0.1-52b at 1 of 4 super-blocks: phase 8 (d)'s prefill and decode
+        jfull = get_config("jamba-v0.1-52b")
+        cfg = jfull.replace(n_layers=JAMBA_BLOCKS * jfull.attn_every)
+        params = init_params(cfg, seed=SHARDED_SEED)
+        shape = scaled_shape(SHAPES["prefill_32k"], 32, 4)           # 1 x 8192 tokens
+        tokens = torch.randint(0, cfg.vocab_size, (1, shape.seq_len), generator=gen,
+                               device="cuda")
+        prefill(f"{cfg.name} prefill 1 x {shape.seq_len} (flash_attention)", cfg, shape, params,
+                (tokens,))
+        shape = scaled_shape(SHAPES["decode_32k"], 16, 1)            # batch 8, 32768 slots
+        decode(f"{cfg.name} decode batch {shape.global_batch} x {shape.seq_len} slots, "
+               f"{SHARDED_STEPS} steps (decode_attention)", cfg, shape, params,
+               noisy_cache(cfg, params, shape))
+        del params
+        free(torch)
+
+        # chameleon-34b at 16 of 48 layers: phase 8 (e)'s decode, batch 1
+        cfg = get_config("chameleon-34b").replace(n_layers=CHAMELEON_LAYERS)
+        params = init_params(cfg, seed=SHARDED_SEED)
+        shape = scaled_shape(SHAPES["prefill_32k"], 32, 8)           # 1 x 4096 slots
+        shape = ShapeConfig("decode", shape.seq_len, 1, "decode")
+        decode(f"{cfg.name} decode batch 1 x {shape.seq_len} slots, {SHARDED_STEPS} steps "
+               "(decode_attention)", cfg, shape, params, noisy_cache(cfg, params, shape))
+        del params
+        free(torch)
+
+        # seamless-m4t-large-v2, no cut: phase 9 (b)'s prefill step, then decode
+        cfg, shape = seamless_job()
+        params = init_params(cfg, seed=SHARDED_SEED)
+        B, Se = shape.global_batch, cfg.enc_len
+        frames = torch.randn((B, Se, cfg.d_model), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        enc_lens = torch.tensor([Se - 97 * i for i in range(B)], dtype=torch.int32,
+                                device="cuda")
+        prefill(f"{cfg.name} encoder pass {B} x {Se} frames (flash_attention)", cfg,
+                ShapeConfig("prefill", shape.seq_len, B, "prefill"), params, (frames, enc_lens))
+        first = make_prefill_step(cfg, ShapeConfig("prefill", shape.seq_len, B, "prefill"))(
+            params, frames, enc_lens)
+        decode(f"{cfg.name} decode batch {B} x {shape.seq_len} self slots + {Se} frames, "
+               f"{SHARDED_STEPS} steps (decode_attention)", cfg, shape, params,
+               lambda: tree_map(torch.clone, first))
+        del params, first
+        free(torch)
+
+        # xlstm-125m, no cut: decode at batch 8
+        cfg = get_config("xlstm-125m")
+        params = init_params(cfg, seed=SHARDED_SEED)
+        shape = scaled_shape(SHAPES["decode_32k"], 16, 1)
+        decode(f"{cfg.name} decode batch {shape.global_batch}, {SHARDED_STEPS} steps", cfg,
+               shape, params, lambda: init_cache(params, cfg, shape.global_batch, shape.seq_len))
+        del params
+    free(torch)
+    return {name: sum(v[name] for v in launches) for name in launches[0]}
+
+
+def phase_families_multi_device(torch, card, work: Path) -> dict:
+    """Phase 12: (a)'s dry runs in processes of their own while (b) runs on
+    the card; returns (b)'s kernel launches."""
+    t_phase = time.perf_counter()
+    free(torch)
+    procs = start_family_dryruns(work)
+    try:
+        launches = phase_family_sharded(torch, card)
+        t_b = time.perf_counter() - t_phase
+        finish_family_dryruns(torch, card, work, procs)
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s ((b) {t_b:.1f} s, (a) in "
+        f"parallel), launches on its sharded steps {launches}  ({card})")
+    return launches
+
+
 def main() -> None:
+    import shutil
+    import tempfile
+
     t_start = time.perf_counter()
+    t_last = [t_start]
     import torch
 
     def done(phase: int) -> None:
-        say(f"chip_smoke: phases up to {phase} done at {time.perf_counter() - t_start:.1f} s")
+        now = time.perf_counter()
+        say(f"chip_smoke: phases up to {phase} done at {now - t_start:.1f} s "
+            f"({now - t_last[0]:.1f} s since the last line)")
+        t_last[0] = now
 
     card = phase_card(torch)
     recs = phase_kernels(torch, card)
@@ -2994,17 +3323,26 @@ def main() -> None:
     phase_vecsim(torch, card, agent, trace, heap)
     done(7)
     families = phase_families(torch, card)
+    done(8)
     audio = phase_audio(torch, card)
     done(9)
     family_train = phase_family_train(torch, card, sched, rl)
     done(10)
-    multi = phase_multi_device(torch, card)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        multi = phase_multi_device(torch, card, work)
+        done(11)
+        multi12 = phase_families_multi_device(torch, card, work)
+        done(12)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     # launches on the main paths: the co-run pair, training the co-scheduler,
     # the train pair, step 4's pair, phases 8 and 9's serving runs, phase
-    # 10's training runs and phase 11's sharded steps (no path of the
-    # package calls rmsnorm)
+    # 10's training runs and phases 11 and 12's sharded steps (no path of
+    # the package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
-                + audio[name] + family_train[name] + multi[name] for name in pair}
+                + audio[name] + family_train[name] + multi[name] + multi12[name]
+                for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

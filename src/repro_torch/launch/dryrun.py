@@ -19,8 +19,18 @@ Eager torch sees every layer, so trace A's costs are exact and are
 recorded beside the differenced ones (``flops_per_chip_full``, ...): they
 check the reference's assumption that a layer costs the same at every
 depth.  Multi-pod cells skip B and C (memory and success only), as the
-reference's do.  Only the dense family has sharded steps yet; any other
-records ``ok: false`` with its ``NotImplementedError``.
+reference's do.  Every family's cell runs (the sharded steps of
+``runtime/steps.py``); a cell that fails is recorded with ``ok: false``
+and its error.
+
+Where the reference's cost analysis visits a ``lax.scan`` body once
+(its lines 22-24: the sLSTM's per-token scan stays a scan in the unrolled
+variants, so its records undercount that loop by the sequence length),
+the port counts every trip: the sLSTM's token loop and the Mamba scan's
+chunk loop run on rank 0's local shards in one ``local_map`` each, and on
+fake tensors their first trip is traced and counted once a trip
+(``launch/roofline.py: TracedLoop``: the flops and major bytes of the
+loop, without some 0.3 ms of host time an op for 4096-32768 tokens).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k --mesh pod
@@ -49,7 +59,7 @@ from repro_torch.models.layers import pdtype
 from repro_torch.optim import OptConfig, tree_map
 from repro_torch.runtime.steps import (
     batch_specs, cache_shardings, distribute, make_decode_step, make_prefill_step,
-    make_train_step, require_sharded, state_shardings,
+    make_train_step, state_shardings,
 )
 from repro_torch.sharding import FSDP_SP_RULES, SEQ_PARALLEL_RULES, specs_to_shardings
 
@@ -235,7 +245,6 @@ def run_cell(arch: str, shape_id: str, mesh_kind: str = "pod", rules_name: str =
     rec = {"arch": arch, "shape": shape_id, "mesh": mesh_kind, "rules": rules_name,
            "chips": n, "kind": shape.kind, "ok": False}
     try:
-        require_sharded(cfg)
         with fake_world(n):
             mesh = (make_test_mesh(*test_mesh, device_type="cpu") if test_mesh else
                     make_production_mesh(multi_pod=mesh_kind == "multipod", device_type="cpu"))

@@ -35,9 +35,12 @@ work: each kernel wrapper reports its own flops and bytes through
 wait for, and fake tensors have none: the reference's cost analysis also
 counts its dense decode attention over the whole cache).  DTensor's own
 sharding propagation runs ops on global fake tensors; they are skipped.
+A loop whose trips cost the same runs its first trip once on fake tensors
+and counts it once a trip (:class:`TracedLoop`, :func:`repeat`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import weakref
@@ -128,11 +131,11 @@ _aten = torch.ops.aten
 MAJOR_OPS = frozenset(getattr(_aten, n) for n in (
     "mm", "addmm", "bmm", "baddbmm", "mv", "convolution",                    # dot, convolution
     "gather", "index", "index_select", "embedding", "take_along_dim",       # gather
-    "scatter", "scatter_add", "index_put", "index_put_", "_index_put_impl_",  # scatter
-    "index_add", "index_add_", "embedding_dense_backward",
+    "scatter", "scatter_add", "scatter_add_", "index_put", "index_put_",    # scatter
+    "_index_put_impl_", "index_add", "index_add_", "embedding_dense_backward",
     "sort", "topk", "argsort",                                               # sort
     "sum", "mean", "amax", "amin", "max", "min", "logsumexp", "linalg_vector_norm",  # reduce
-    "var", "prod", "cumsum", "argmax", "argmin", "any", "all",
+    "var", "prod", "cumsum", "cummax", "bincount", "argmax", "argmin", "any", "all",
     "cat", "stack", "slice_scatter", "select_scatter",                       # concatenate, dus
     "copy", "copy_", "clone", "_to_copy",                                    # copy
 ))
@@ -195,6 +198,7 @@ class CostCounter(TorchDispatchMode):
         self.live = self.peak = 0
         self._seen = weakref.WeakKeyDictionary()
         self._paused = 0
+        self._times = 1          # trips of a loop body traced once (:func:`repeat`)
         for t in existing:
             self._seen[t.untyped_storage()] = True
 
@@ -223,6 +227,19 @@ class CostCounter(TorchDispatchMode):
     def _free(self, n: int) -> None:
         self.live -= n
 
+    def retain(self, tensors, extra: int, new_only: bool = False) -> None:
+        """Count the storages of ``tensors`` ``extra`` more times as live
+        until they die: the copies a loop traced once keeps, one a trip.
+        ``new_only``: skip the storages this counter has seen (arguments,
+        and allocations it counted)."""
+        for t in _tensors(tensors):
+            if new_only and t.untyped_storage() in self._seen:
+                continue
+            n = extra * t.untyped_storage().nbytes()
+            self.live += n
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(t.untyped_storage(), self._free, n)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
@@ -230,21 +247,23 @@ class CostCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self._paused or _in_sharding_prop():
             return out
+        n = self._times
         if func.namespace == "_c10d_functional":
             name = func._overloadpacket.__name__
             if name in COLLECTIVE_NAMES:
                 b = _nbytes(out)
-                self.collectives.append((name, b, args[-1] if isinstance(args[-1], str) else ""))
-                self.bytes += b + _nbytes(args[0])
+                group = args[-1] if isinstance(args[-1], str) else ""
+                self.collectives.extend([(name, b, group)] * n)
+                self.bytes += n * (b + _nbytes(args[0]))
             self.track(out)
             return out
         if func.namespace == "prim" or func.is_view:
             return out
-        b = _nbytes(args) + _nbytes(list(kwargs.values())) + _nbytes(out)
+        b = n * (_nbytes(args) + _nbytes(list(kwargs.values())) + _nbytes(out))
         self.bytes_raw += b
         if func._overloadpacket in MAJOR_OPS:
             self.bytes += b
-        self.flops += _mm_flops(func, args, out)
+        self.flops += n * _mm_flops(func, args, out)
         self.track(out)
         return out
 
@@ -261,6 +280,120 @@ class CostCounter(TorchDispatchMode):
         return collective_stats(self.collectives)
 
 
+@contextlib.contextmanager
+def repeat(n: int):
+    """Count the ops run inside ``n`` times each in every active
+    :class:`CostCounter` (a loop body traced once for its ``n`` trips)."""
+    counters = list(_ACTIVE)
+    for c in counters:
+        c._times *= n
+    try:
+        yield
+    finally:
+        for c in counters:
+            c._times //= n
+
+
+@contextlib.contextmanager
+def paused():
+    """Count none of the ops run inside, in every active :class:`CostCounter`."""
+    counters = list(_ACTIVE)
+    for c in counters:
+        c._paused += 1
+    try:
+        yield
+    finally:
+        for c in counters:
+            c._paused -= 1
+
+
+def retain(tensors, extra: int, new_only: bool = False) -> None:
+    """:meth:`CostCounter.retain` in every active counter."""
+    for c in _ACTIVE:
+        c.retain(tensors, extra, new_only)
+
+
+def _trips(x: torch.Tensor, dim: int, size: int) -> int:
+    return x.shape[dim] if size == 0 else x.shape[dim] // size
+
+
+def _first(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    return x.select(dim, 0) if size == 0 else x.narrow(dim, 0, size)
+
+
+def _join(y: torch.Tensor, n: int, dim: int, size: int) -> torch.Tensor:
+    return torch.stack([y] * n, dim) if size == 0 else torch.cat([y] * n, dim)
+
+
+class TracedLoop(torch.autograd.Function):
+    """A loop whose trips cost the same, on a dry run's fake tensors (some
+    0.3 ms of host time an op): the first trip is traced and counted once
+    a trip (:func:`repeat`), forward and backward, and the tensors a trip
+    keeps are counted live once a trip (:func:`retain`).
+
+    ``apply(step, carry_fn, dim, size, n_xs, *xs, *ws)``: the loop cuts
+    each of the ``n_xs`` tensors ``xs`` into trips along ``dim``
+    (``unbind`` where ``size`` is 0, else ``split(size)``) and runs
+    ``step(carry, *x_trip, *ws) -> (carry, y)`` from ``carry_fn(False)``;
+    the result is the trips' ``y`` stacked (or concatenated) along ``dim``.
+    Its backward counts the first trip's backward once without the
+    carry's gradient, which nothing asks for there, and for the other
+    trips with it (``carry_fn(True)`` makes a carry of distinct tensors).
+    The stacks of the outputs and of the inputs' gradients are the loop's
+    own ops, so flops and the bytes of major ops equal the loop's; raw
+    bytes (the weights' gradient sums) and live bytes are near."""
+
+    @staticmethod
+    def forward(ctx, step, carry_fn, dim, size, n_xs, *tensors):
+        xs, ws = tensors[:n_xs], tensors[n_xs:]
+        n = _trips(xs[0], dim, size)
+        ctx.save_for_backward(*tensors)
+        ctx.loop = (step, carry_fn, dim, size, n_xs, n)
+        carry = carry_fn(False)
+        with repeat(n):
+            y = step(carry, *(_first(x, dim, size) for x in xs), *ws)[1]
+        retain(y, n - 1)
+        return _join(y, n, dim, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        step, carry_fn, dim, size, n_xs, n = ctx.loop
+        tensors = ctx.saved_tensors
+        g1 = _first(g, dim, size)
+        grads = _trip_backward(step, carry_fn, tensors, n_xs, dim, size, g1, n - 1, True)
+        _trip_backward(step, carry_fn, tensors, n_xs, dim, size, g1, 1, False)
+        return (None,) * 5 + tuple(_join(gx, n, dim, size) for gx in grads[:n_xs]) + tuple(
+            grads[n_xs:])
+
+
+def _trip_backward(step, carry_fn, tensors, n_xs, dim, size, g_y, trips: int,
+                   carry_grad: bool) -> tuple:
+    """One trip's backward counted ``trips`` times: its forward rerun
+    uncounted (a loop's backward reruns none), the tensors it saves
+    counted live ``trips`` times.  The gradients of the trip's inputs and
+    of the weights."""
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.enable_grad(), paused(), torch.autograd.graph.saved_tensors_hooks(pack,
+                                                                                 lambda t: t):
+        inputs = [(_first(t, dim, size) if i < n_xs else t).detach().requires_grad_()
+                  for i, t in enumerate(tensors)]
+        carry = carry_fn(True)
+        for t in carry if carry_grad else ():
+            t.requires_grad_()
+        new_carry, y = step(carry, *inputs)
+        grad_outs = [torch.zeros_like(t) for t in new_carry] + [g_y]
+    retain(saved, trips, new_only=True)
+    with repeat(trips):
+        grads = torch.autograd.grad([*new_carry, y], inputs + (list(carry) if carry_grad else []),
+                                    grad_outs)
+    return grads[:len(inputs)]
+
+
 def kernel_call(name: str, cost, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, a kernel launch or its plain version, with
     its formula ``cost() -> (flops, bytes)`` added to every active
@@ -272,12 +405,8 @@ def kernel_call(name: str, cost, fn, *args, **kwargs):
     flops, nbytes = cost()
     for c in counters:
         c.add_kernel(name, flops, nbytes)
-        c._paused += 1
-    try:
+    with paused():
         out = fn(*args, **kwargs)
-    finally:
-        for c in counters:
-            c._paused -= 1
     for c in counters:
         c.track(out)
     return out

@@ -9,14 +9,13 @@ steps from token 0 over a ``gen + 1``-slot cache, and the reference's line
 against the cross-attention K/V of ``enc_len`` zero frames, as the
 reference's ``init_cache`` gives them.  ``--mesh-data`` x
 ``--mesh-model`` (1 x 1 by default) is the decode step's mesh, as in
-``launch/train.py``: a family with sharded steps decodes through them (on
+``launch/train.py``: every family decodes through its sharded step (on
 one device a 1 x 1 mesh; a larger mesh needs a ``torchrun`` world of its
-size); the others run the one-device step and refuse a larger mesh.
+size).
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
 
 import torch
@@ -24,7 +23,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models.model import init_params
 from repro_torch.launch.mesh import launcher_mesh
-from repro_torch.runtime.steps import SHARDED_FAMILIES, full, make_decode_step, require_sharded
+from repro_torch.runtime.steps import full, make_decode_step
 
 
 def main(argv=None) -> torch.Tensor:
@@ -41,19 +40,13 @@ def main(argv=None) -> torch.Tensor:
 
     cfg = get_config(args.arch) if args.scale == "full" else get_smoke_config(args.arch)
     device = torch.device(args.device)
-    sharded = cfg.family in SHARDED_FAMILIES
-    if not sharded and (args.mesh_data, args.mesh_model) != (1, 1):
-        require_sharded(cfg)
-    with (launcher_mesh(args.mesh_data, args.mesh_model, device) if sharded
-          else contextlib.nullcontext()) as mesh:
+    with launcher_mesh(args.mesh_data, args.mesh_model, device) as mesh:
         return _serve(args, cfg, device, mesh)
 
 
 def _serve(args, cfg, device, mesh):
     step = make_decode_step(cfg, args.batch, args.gen + 1, device=device, mesh=mesh)
-    params = init_params(cfg, seed=0, device=device)
-    if mesh is not None:
-        params = step.distribute(params)
+    params = step.distribute(init_params(cfg, seed=0, device=device))
     cache = step.init_cache(params)
 
     tok = torch.zeros((args.batch,), dtype=torch.int32, device=device)

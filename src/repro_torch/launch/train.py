@@ -10,11 +10,10 @@ Port of ``repro/launch/train.py``: ``OptConfig()``'s defaults,
 ``--ckpt-dir``, ``{"params", "opt"}`` saved every ``--ckpt-every`` steps
 (full tensors), and the reference's lines; ``--device`` is added, as
 ``launch/serve.py`` has it.  ``--mesh-data`` x ``--mesh-model`` (1 x 1 by
-default) is the step's mesh (``launch/mesh.py: launcher_mesh``): a family
-with sharded steps runs through them, on one device a 1 x 1 mesh; a
+default) is the step's mesh (``launch/mesh.py: launcher_mesh``): every
+family trains through its sharded step, on one device a 1 x 1 mesh; a
 larger mesh needs a world of its size (``torchrun``), and the launcher
-raises without one.  The other families run the one-device step, and
-refuse a larger mesh.
+raises without one.
 
 The reference's resume fails for a bf16 model: its ``restore`` gives a bf16
 leaf back as a raw ``V2`` array, which ``jax.device_put`` refuses
@@ -26,7 +25,6 @@ then raises ``KeyError``).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import time
 
 import torch
@@ -36,8 +34,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataPipeline, batch_to_device
 from repro_torch.models.model import init_params
 from repro_torch.launch.mesh import launcher_mesh
-from repro_torch.optim import OptConfig, init_opt_state, tree_map
-from repro_torch.runtime.steps import SHARDED_FAMILIES, full, make_train_step, require_sharded
+from repro_torch.optim import OptConfig, tree_map
+from repro_torch.runtime.steps import full, make_train_step
 
 
 def main(argv=None) -> dict | None:
@@ -61,17 +59,13 @@ def main(argv=None) -> dict | None:
         raise NotImplementedError(f"{cfg.name}: the data pipeline makes no encoder frames, and "
                                   "the reference's loss_fn needs them")
     device = torch.device(args.device)
-    sharded = cfg.family in SHARDED_FAMILIES
-    if not sharded and (args.mesh_data, args.mesh_model) != (1, 1):
-        require_sharded(cfg)
-    with (launcher_mesh(args.mesh_data, args.mesh_model, device) if sharded
-          else contextlib.nullcontext()) as mesh:
+    with launcher_mesh(args.mesh_data, args.mesh_model, device) as mesh:
         return _train(args, cfg, device, mesh)
 
 
 def _train(args, cfg, device, mesh):
-    where = "" if mesh is None else f" mesh={args.mesh_data}x{args.mesh_model}"
-    print(f"arch={cfg.name} device={device}{where} batch={args.batch} seq={args.seq}")
+    print(f"arch={cfg.name} device={device} mesh={args.mesh_data}x{args.mesh_model} "
+          f"batch={args.batch} seq={args.seq}")
 
     step_fn = make_train_step(cfg, OptConfig(), device, mesh=mesh)
     pipe = DataPipeline(cfg.vocab_size, args.seq, args.batch, seed=0, mode="markov")
@@ -81,10 +75,8 @@ def _train(args, cfg, device, mesh):
         params, opt = tree["params"], tree["opt"]
         print(f"resumed @ {start}")
     else:
-        params = init_params(cfg, 0, device)
-        opt = None if mesh is not None else init_opt_state(params)
-    if mesh is not None:
-        params, opt = step_fn.distribute(params, opt)
+        params, opt = init_params(cfg, 0, device), None
+    params, opt = step_fn.distribute(params, opt)
 
     metrics = None
     t0 = time.time()

@@ -17,6 +17,8 @@ projection's gradient needs them, as GSPMD reduces them.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.tensor import Partial, Replicate, Shard
 from torch.distributed.tensor import zeros as dtensor_zeros
@@ -25,7 +27,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, pdtype, qk_norm
-from repro_torch.sharding import active_mesh, constrain
+from repro_torch.sharding import active_mesh, constrain, logical_spec
 from repro_torch.sharding.specs import placements_for, shard_offset
 
 
@@ -53,7 +55,23 @@ def _project_q(p, x, cfg):
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
+    if not _heads_divide(cfg.n_heads):
+        # the q heads stay whole on each rank (qwen2.5-14b's 40 on a model
+        # axis of 16): DTensor cannot cut heads out of a feature shard
+        q = constrain(q, ("act_batch", "act_seq", None))
     return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.d_head)
+
+
+def _heads_divide(n_heads: int) -> bool:
+    """Whether the mesh axes of ``act_heads`` divide ``n_heads`` (true
+    without an active mesh)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return True
+    (entry,) = logical_spec(("act_heads",), mesh)
+    names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    size = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return n_heads % math.prod(size[a] for a in names) == 0
 
 
 def _project_kv(p, x, cfg):

@@ -26,9 +26,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import (
     attn_apply, attn_decode, init_attn, init_kv_cache, precompute_cross_kv,
 )
-from repro_torch.models.layers import ones_init, pdtype, rmsnorm
+from repro_torch.models.layers import ones_init, pdtype, residual, rmsnorm
 from repro_torch.models.mlp import gelu_mlp_apply, init_gelu_mlp
-from repro_torch.models.transformer import _unstack, layer_params, zero_aux
+from repro_torch.models.transformer import _store, _unstack, layer_params, zero_aux
 from repro_torch.sharding import constrain
 
 
@@ -44,7 +44,7 @@ def init_enc_layer(generator, cfg, layers: int | None = None, device="cuda") -> 
 
 def enc_layer_apply(p, x, cfg, positions):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_apply(p["attn"], h, cfg, positions, causal=False)[0]
+    x = residual(x + attn_apply(p["attn"], h, cfg, positions, causal=False)[0])
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     return constrain(x + gelu_mlp_apply(p["mlp"], h), ("act_batch", "act_seq", "act_embed"))
 
@@ -63,9 +63,10 @@ def init_dec_layer(generator, cfg, layers: int | None = None, device="cuda") -> 
 
 def dec_layer_apply(p, x, enc_out, cfg, positions):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn_apply(p["attn"], h, cfg, positions, causal=True)[0]
+    x = residual(x + attn_apply(p["attn"], h, cfg, positions, causal=True)[0])
     h = rmsnorm(x, p["ln_x"], cfg.norm_eps)
-    x = x + attn_apply(p["xattn"], h, cfg, positions, causal=False, kv_src=enc_out)[0]
+    x = residual(x + attn_apply(p["xattn"], h, cfg, positions, causal=False,
+                                kv_src=enc_out)[0])
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     return constrain(x + gelu_mlp_apply(p["mlp"], h), ("act_batch", "act_seq", "act_embed"))
 
@@ -115,15 +116,13 @@ def init_encdec_cache(params, cfg, batch: int, max_len: int, enc_out=None,
                               device=device)
         enc_lens = torch.full((batch,), cfg.enc_len, dtype=torch.int32, device=device)
     enc_lens = enc_lens.to(device=device, dtype=torch.int32)
-    shape = (L, batch, enc_out.shape[1], cfg.n_kv_heads, cfg.d_head)
-    k = torch.empty(shape, dtype=pdtype(cfg), device=device)
-    v = torch.empty(shape, dtype=pdtype(cfg), device=device)
+    cross = init_kv_cache(cfg, batch, enc_out.shape[1], layers=L, device=device)
     for i in range(L):
         kv = precompute_cross_kv(layer_params(params["dec_layers"], i)["xattn"], enc_out,
                                  enc_lens, cfg)
-        k[i].copy_(kv["k"])
-        v[i].copy_(kv["v"])
-    cross = {"k": k, "v": v, "len": enc_lens.expand(L, batch).contiguous()}
+        _store(cross["k"][i], kv["k"])
+        _store(cross["v"][i], kv["v"])
+    cross["len"] = enc_lens.expand(L, batch).contiguous()
     return {"self": self_cache, "cross": cross}
 
 

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from repro_torch.sharding import constrain
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -108,6 +110,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------
+
+def halves(t: torch.Tensor):
+    """The two halves of ``t``'s last dim (B, [S,] 2F).  Under a mesh that
+    dim is gathered first (the batch stays sharded): half of a sharded dim
+    has no DTensor layout."""
+    t = constrain(t, ("act_batch", "act_seq", None) if t.ndim == 3 else ("act_batch", None))
+    return t.chunk(2, dim=-1)
+
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream (B, [S,] M) laid out as the blocks' ``constrain``
+    lays it: batch as ``act_batch``, a ``Partial`` sum a block added
+    reduced.  Where the reference leaves the layout to GSPMD, DTensor may
+    reduce-scatter such a sum along the tokens, which on the multi-pod mesh
+    reaches a product whose backward has no sharding rule."""
+    return constrain(x, ("act_batch", "act_seq", "act_embed") if x.ndim == 3
+                     else ("act_batch", "act_embed"))
+
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv over seq. x: (B, S, C); w: (K, C).

@@ -20,8 +20,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import causal_conv1d, conv1d_step, dense_init, pdtype
-from repro_torch.sharding import constrain
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.launch import roofline
+from repro_torch.models.layers import causal_conv1d, conv1d_step, dense_init, halves, pdtype
+from repro_torch.sharding import active_mesh, constrain
+from repro_torch.sharding.specs import placements_for
 
 
 def _dt_rank(cfg) -> int:
@@ -57,7 +63,11 @@ def init_mamba(generator, cfg, layers: int | None = None, device="cuda") -> dict
 def _ssm_inputs(p: dict, x1: torch.Tensor, cfg):
     """x1: (..., D) post-conv activations -> f32 (dt, Bs, Cs)."""
     N, R = cfg.mamba.d_state, _dt_rank(cfg)
-    dt_r, Bs, Cs = (x1 @ p["w_x"]).float().split([R, N, N], dim=-1)
+    # a contraction over the d_inner that "model" shards: its Partial sum
+    # reduced here, once, and not carried on into the dt product
+    xdbc = constrain(x1 @ p["w_x"], ("act_batch", "act_seq", None) if x1.ndim == 3
+                     else ("act_batch", None))
+    dt_r, Bs, Cs = xdbc.float().split([R, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["w_dt"] + p["b_dt"])                 # (..., D)
     return dt, Bs, Cs
 
@@ -78,32 +88,66 @@ def _scan_chunk(da: torch.Tensor, inp: torch.Tensor, h: torch.Tensor):
 
 def mamba_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Prefill / training forward.  x: (B, S, M) -> (B, S, M)."""
-    mc = cfg.mamba
-    B, S, M = x.shape
-    chunk = min(mc.chunk, S)
-
-    x1, z = (x @ p["w_in"]).chunk(2, dim=-1)                     # (B, S, D)
+    x1, z = halves(x @ p["w_in"])                                # (B, S, D)
     x1 = constrain(x1, ("act_batch", "act_seq", "act_mlp"))
     x1 = F.silu(causal_conv1d(x1, p["conv_w"], p["conv_b"]))
     dt, Bs, Cs = _ssm_inputs(p, x1, cfg)
     A = -torch.exp(p["A_log"])                                   # (D, N)
-    x1f = x1.float()
+    y = _scan_on_shards(dt, Bs, Cs, x1.float(), A, p["D"], cfg.mamba.chunk)
+    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+
+
+def _scan(dt, Bs, Cs, x1f, A, d_skip, chunk_len: int):
+    """The chunked scan, f32: dt, x1f (B, S, D), Bs, Cs (B, S, N), A (D,
+    N), the skip d_skip (D,) -> y (B, S, D).  On a dry run's fake tensors
+    one chunk is traced and counted once a chunk (``roofline.TracedLoop``)."""
+    B, S, D = dt.shape
+    chunk = min(chunk_len, S)
+
+    def step(carry, dtk, Bk, Ck, xk, A):
+        da = torch.exp(dtk[..., None] * A)                       # (B, c, D, N)
+        inp = (dtk * xk)[..., None] * Bk[:, :, None, :]
+        h_all = _scan_chunk(da, inp, carry[0])
+        return (h_all[:, -1],), torch.einsum("bcdn,bcn->bcd", h_all, Ck)
+
+    def zero(distinct: bool):
+        return (torch.zeros((B, D, A.shape[-1]), dtype=torch.float32, device=dt.device),)
 
     with torch.profiler.record_function("mamba_scan"):
-        h = torch.zeros((B, d_inner(cfg), mc.d_state), dtype=torch.float32, device=x.device)
-        ys = []
-        for lo in range(0, S, chunk):
-            dtk, Bk, Ck, xk = (a[:, lo:lo + chunk] for a in (dt, Bs, Cs, x1f))
-            pad = chunk - dtk.shape[1]
-            if pad:   # the ragged last chunk, padded as the reference pads it
-                dtk, Bk, Ck, xk = (F.pad(a, (0, 0, 0, pad)) for a in (dtk, Bk, Ck, xk))
-            da = torch.exp(dtk[..., None] * A)                   # (B, c, D, N)
-            inp = (dtk * xk)[..., None] * Bk[:, :, None, :]
-            h_all = _scan_chunk(da, inp, h)
-            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, Ck))
-            h = h_all[:, -1]
-        y = torch.cat(ys, dim=1)[:, :S] + p["D"] * x1f
-    return (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+        if isinstance(dt, FakeTensor) and S > chunk and S % chunk == 0:
+            y = roofline.TracedLoop.apply(step, zero, 1, chunk, 4, dt, Bs, Cs, x1f, A)
+        else:
+            # ``split`` (one backward node a tensor), not a slice a chunk, whose
+            # backward would write a full-size gradient a chunk
+            carry, ys = zero(False), []
+            for dtk, Bk, Ck, xk in zip(*(a.split(chunk, dim=1) for a in (dt, Bs, Cs, x1f))):
+                pad = chunk - dtk.shape[1]
+                if pad:   # the ragged last chunk, padded as the reference pads it
+                    dtk, Bk, Ck, xk = (F.pad(a, (0, 0, 0, pad)) for a in (dtk, Bk, Ck, xk))
+                carry, yk = step(carry, dtk, Bk, Ck, xk, A)
+                ys.append(yk)
+            y = torch.cat(ys, dim=1)[:, :S]
+        return y + d_skip * x1f
+
+
+def _scan_on_shards(dt, Bs, Cs, x1f, A, d_skip, chunk_len: int):
+    """:func:`_scan`; under a mesh on each rank's shard (batch as
+    ``act_batch``, d_inner as ``act_mlp``, the sequence whole), where it
+    treats each (batch row, channel) alone: no DTensor op a chunk round."""
+    mesh = active_mesh()
+    if mesh is None or not isinstance(dt, DTensor):
+        return _scan(dt, Bs, Cs, x1f, A, d_skip, chunk_len)
+    act = placements_for(("act_batch", None, "act_mlp"), dt.shape, mesh)
+    rows = [a if isinstance(a, Shard) and a.dim == 0 else Replicate() for a in act]
+    chans = [Shard(0) if isinstance(a, Shard) and a.dim == 2 else Replicate() for a in act]
+    # a gradient is a Partial sum over the mesh dims that cut the other operand
+    rows_grad = [Partial() if isinstance(a, Shard) and a.dim == 2 else b for a, b in zip(act, rows)]
+    chans_grad = [Partial() if isinstance(a, Shard) and a.dim == 0 else b
+                  for a, b in zip(act, chans)]
+    return local_map(lambda *t: _scan(*t, chunk_len), out_placements=act,
+                     in_placements=(act, rows, rows, act, chans, chans),
+                     in_grad_placements=(act, rows_grad, rows_grad, act, chans_grad, chans_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(dt, Bs, Cs, x1f, A, d_skip)
 
 
 def init_mamba_state(cfg, batch: int, lead: tuple = (), device="cuda") -> dict:
@@ -116,7 +160,7 @@ def init_mamba_state(cfg, batch: int, lead: tuple = (), device="cuda") -> dict:
 
 def mamba_decode(p: dict, x_t: torch.Tensor, state: dict, cfg):
     """One-token recurrent step.  x_t: (B, M) -> (out, new state)."""
-    x1, z = (x_t @ p["w_in"]).chunk(2, dim=-1)                   # (B, D)
+    x1, z = halves(x_t @ p["w_in"])                              # (B, D)
     x1, conv_state = conv1d_step(x1, state["conv"], p["conv_w"], p["conv_b"])
     x1 = F.silu(x1)
     dt, Bs, Cs = _ssm_inputs(p, x1, cfg)                         # (B, D), (B, N), (B, N)

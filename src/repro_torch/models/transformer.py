@@ -17,10 +17,11 @@ does (the drop fraction is summed, not averaged).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attn_apply, attn_decode, init_attn, init_kv_cache
-from repro_torch.models.layers import ones_init, rmsnorm
+from repro_torch.models.layers import ones_init, residual, rmsnorm
 from repro_torch.models.mamba import init_mamba, init_mamba_state, mamba_apply, mamba_decode
 from repro_torch.models.mlp import init_swiglu, swiglu_apply
 from repro_torch.models.moe import init_moe, moe_apply, moe_decode
@@ -29,6 +30,19 @@ from repro_torch.models.xlstm import (
     slstm_apply, slstm_decode,
 )
 from repro_torch.sharding import constrain
+
+
+def _store(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` between any mix of DTensors (``src`` laid out as
+    ``dst`` first) and plain tensors (replicated)."""
+    if isinstance(dst, DTensor):
+        if not isinstance(src, DTensor):
+            src = DTensor.from_local(src, dst.device_mesh, [Replicate()] * dst.device_mesh.ndim,
+                                     run_check=False)
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    elif isinstance(src, DTensor):
+        src = src.full_tensor()
+    dst.copy_(src)
 
 
 def zero_aux(device) -> dict:
@@ -214,9 +228,9 @@ def jamba_block_apply(p, x, cfg, positions):
         lp = p[f"sub{i}"]
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if "attn" in lp:
-            x = x + attn_apply(lp["attn"], h, cfg, positions)[0]
+            x = residual(x + attn_apply(lp["attn"], h, cfg, positions)[0])
         else:
-            x = x + mamba_apply(lp["mamba"], h, cfg)
+            x = residual(x + mamba_apply(lp["mamba"], h, cfg))
         h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         y, aux = _ffn_apply(lp, h, cfg, aux)
         x = constrain(x + y, ("act_batch", "act_seq", "act_embed"))
@@ -259,7 +273,7 @@ def jamba_block_decode(p, x_t, block_cache, pos, cfg):
         else:
             a, new = mamba_decode(lp["mamba"], h, layer_params(block_cache["mamba"], mi), cfg)
             for k, v in new.items():
-                block_cache["mamba"][k][mi].copy_(v)
+                _store(block_cache["mamba"][k][mi], v)
             mi += 1
         x_t = x_t + a
         h = rmsnorm(x_t, lp["ln2"], cfg.norm_eps)
@@ -328,5 +342,5 @@ def xlstm_stack_decode(stacked, x_t, cache, pos, cfg):
         for name, fn in (("mlstm", mlstm_decode), ("slstm", slstm_decode)):
             x_t, new = fn(p[name], x_t, layer_params(cache[name], i), cfg)
             for k, v in new.items():
-                cache[name][k][i].copy_(v)
+                _store(cache[name][k][i], v)
     return x_t, cache

@@ -27,8 +27,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.models.layers import causal_conv1d, conv1d_step, dense_init, pdtype, rmsnorm
+from repro_torch.launch import roofline
+from repro_torch.models.layers import (
+    causal_conv1d, conv1d_step, dense_init, halves, pdtype, residual, rmsnorm,
+)
+from repro_torch.sharding import constrain
+from repro_torch.sharding.specs import on_batch_shards
 
 NEG = -1e30
 
@@ -80,26 +86,37 @@ def init_mlstm(generator, cfg, layers: int | None = None, device="cuda") -> dict
     }
 
 
+def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    """(..., D) -> (..., H, D // H).  Under a mesh the features are
+    gathered first and the batch stays sharded: the recurrences run on
+    batch shards, and 4 heads do not divide a model axis of 16."""
+    t = constrain(t, ("act_batch", "act_seq", None) if t.ndim == 3 else ("act_batch", None))
+    return t.reshape(*t.shape[:-1], H, t.shape[-1] // H)
+
+
 def _mlstm_qkv_gates(p, x, cfg):
     """x: (B, S, M) -> q, k, v (B, S, H, dh), gates li, lf (B, S, H) f32, z (B, S, D)."""
     H = cfg.n_heads
     D = m_inner(cfg)
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     up = xn @ p["w_up"]
-    xm, z = up.chunk(2, dim=-1)                            # (B, S, D)
+    xm, z = halves(up)                                     # (B, S, D)
     c = F.silu(causal_conv1d(xm, p["conv_w"], p["conv_b"]))
-    q = (c @ p["wq"]).reshape(*c.shape[:-1], H, D // H)
-    k = (c @ p["wk"]).reshape(*c.shape[:-1], H, D // H) * (D // H) ** -0.5
-    v = (xm @ p["wv"]).reshape(*xm.shape[:-1], H, D // H)
+    q = _heads(c @ p["wq"], H)
+    k = _heads(c @ p["wk"], H) * (D // H) ** -0.5
+    v = _heads(xm @ p["wv"], H)
     gates = c.float() @ p["w_gates"] + p["b_gates"]
-    li, lf_pre = gates.chunk(2, dim=-1)                    # (B, S, H)
-    return q, k, v, li, F.logsigmoid(lf_pre), z
+    li, lf_pre = halves(gates)                             # (B, S, H)
+    return q, k, v, li, on_batch_shards(F.logsigmoid, lf_pre), z
 
 
 def _mlstm_finish(p, h, z, x, cfg):
     B, S = x.shape[:2]
-    h = rmsnorm(h.reshape(B, S, -1), p["onorm"], cfg.norm_eps)   # the xLSTM block's GN
-    return x + (h.to(x.dtype) * F.silu(z)) @ p["w_down"]
+    # the heads merged; under a mesh the gradient is gathered before it is
+    # split into heads again (4 heads do not divide a model axis of 16)
+    h = constrain(h.reshape(B, S, -1), ("act_batch", "act_seq", None))
+    h = rmsnorm(h, p["onorm"], cfg.norm_eps)                      # the xLSTM block's GN
+    return residual(x + (h.to(x.dtype) * F.silu(z)) @ p["w_down"])
 
 
 def _mlstm_chunk(carry, qk, kk, vk, lik, lfk):
@@ -150,30 +167,33 @@ def _zero_mlstm_carry(B, H, dh, device):
 
 def mlstm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Chunk-parallel mLSTM forward. x: (B, S, M)."""
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    dh = m_inner(cfg) // H
-    chunk = min(cfg.xlstm.chunk, S)
     q, k, v, li, lf, z = _mlstm_qkv_gates(p, x, cfg)
+    h = on_batch_shards(lambda *t: _mlstm_chunks(*t, cfg.xlstm.chunk), q, k, v, li, lf)
+    return _mlstm_finish(p, h, z, x, cfg)
 
+
+def _mlstm_chunks(q, k, v, li, lf, chunk_len: int):
+    """The chunk loop: q, k, v (B, S, H, dh), gates li, lf (B, S, H) ->
+    h (B, S, H, dh) f32."""
+    B, S, H, dh = q.shape
+    chunk = min(chunk_len, S)
     pad = (-S) % chunk
     qp, kp, vp = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     lip, lfp = F.pad(li, (0, 0, 0, pad)), F.pad(lf, (0, 0, 0, pad))
     if pad:  # padded steps: i = -inf (no contribution), f = 0 (identity decay)
-        mask = (torch.arange(S + pad, device=x.device) < S)[None, :, None]
+        mask = (torch.arange(S + pad, device=q.device) < S)[None, :, None]
         lip = torch.where(mask, lip, NEG)
         lfp = torch.where(mask, lfp, 0.0)
 
     # ``split`` (one backward node a tensor), not a slice per chunk, whose
     # backward would write a full-size gradient per chunk
-    carry = _zero_mlstm_carry(B, H, dh, x.device)
+    carry = _zero_mlstm_carry(B, H, dh, q.device)
     hs = []
     with torch.profiler.record_function("mlstm_chunks"):
         for inputs in zip(*(t.split(chunk, dim=1) for t in (qp, kp, vp, lip, lfp))):
             carry, h = _mlstm_chunk(carry, *inputs)
             hs.append(h)
-        h = torch.cat(hs, dim=1)[:, :S]                    # (B, S, H, dh)
-    return _mlstm_finish(p, h, z, x, cfg)
+        return torch.cat(hs, dim=1)[:, :S]                 # (B, S, H, dh)
 
 
 def _mlstm_recur(C, n, m, qt, kt, vt, lit, lft):
@@ -223,16 +243,16 @@ def mlstm_decode(p: dict, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Te
     H = cfg.n_heads
     dh = m_inner(cfg) // H
     xn = rmsnorm(x_t, p["norm"], cfg.norm_eps)
-    xm, z = (xn @ p["w_up"]).chunk(2, dim=-1)
+    xm, z = halves(xn @ p["w_up"])
     c, conv_state = conv1d_step(xm, state["conv"], p["conv_w"], p["conv_b"])
     c = F.silu(c)
-    q = (c @ p["wq"]).reshape(B, H, dh).float()
-    k = ((c @ p["wk"]).reshape(B, H, dh) * dh ** -0.5).float()
-    v = (xm @ p["wv"]).reshape(B, H, dh).float()
+    q = _heads(c @ p["wq"], H).float()
+    k = (_heads(c @ p["wk"], H) * dh ** -0.5).float()
+    v = _heads(xm @ p["wv"], H).float()
     gates = c.float() @ p["w_gates"] + p["b_gates"]
-    li, lf_pre = gates.chunk(2, dim=-1)
-    C, n, m, h = _mlstm_recur(state["C"], state["n"], state["m"], q, k, v, li,
-                              F.logsigmoid(lf_pre))
+    li, lf_pre = halves(gates)
+    C, n, m, h = on_batch_shards(_mlstm_recur, state["C"], state["n"], state["m"], q, k, v, li,
+                                 on_batch_shards(F.logsigmoid, lf_pre), n_out=4)
     h = rmsnorm(h.reshape(B, -1), p["onorm"], cfg.norm_eps)
     out = x_t + (h.to(x_t.dtype) * F.silu(z)) @ p["w_down"]
     return out, {"C": C, "n": n, "m": m, "conv": conv_state}
@@ -281,34 +301,54 @@ def _slstm_recur(pre, c, n, m, one):
 def _slstm_ffn(p, x, cfg):
     """The gated FFN after the cell (post-up-projection, factor 4/3)."""
     xn2 = rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-    g, u = (xn2 @ p["w_up"]).chunk(2, dim=-1)
-    return x + (F.gelu(g, approximate="tanh") * u) @ p["w_down"]
+    g, u = halves(xn2 @ p["w_up"])
+    return residual(x + (F.gelu(g, approximate="tanh") * u) @ p["w_down"])
 
 
 def slstm_apply(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Sequential sLSTM + gated FFN. x: (B, S, M).
-
-    The recurrence runs head-major, (H, B, ...), so that a token's
-    recurrent product and its input term are one ``baddbmm``."""
-    B, S, M = x.shape
-    H = cfg.n_heads
-    dh = M // H
+    """Sequential sLSTM + gated FFN. x: (B, S, M).  Under a mesh the
+    recurrence runs on each rank's batch rows (its weights are replicated)."""
     xn = rmsnorm(x, p["norm"], cfg.norm_eps)
     wx = xn.float() @ p["slstm_w"] + p["slstm_b"]          # (B, S, 4M), laid out (H, 4, dh)
-    wx = wx.reshape(B, S, H, 4 * dh).permute(1, 2, 0, 3)   # (S, H, B, 4 dh)
-    r = p["slstm_r"].permute(0, 2, 1, 3).reshape(H, dh, 4 * dh)   # r[h, d, g dh + e]
-    f32 = torch.float32
-    h = c = n = torch.zeros((H, B, dh), dtype=f32, device=x.device)
-    m = torch.full((H, B, dh), NEG, dtype=f32, device=x.device)
-    one = torch.ones((), dtype=f32, device=x.device)
-    hs = []
-    with torch.profiler.record_function("slstm_loop"):
-        for wx_t in wx.unbind(0):      # one backward node, as ``split`` above
-            pre = torch.baddbmm(wx_t, h, r).view(H, B, 4, dh)
-            h, c, n, m = _slstm_recur(pre, c, n, m, one)
-            hs.append(h)
-        h = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, M)   # (S, H, B, dh) -> (B, S, M)
+    h = on_batch_shards(lambda wx, r: _slstm_loop(wx, r, cfg.n_heads), wx, p["slstm_r"],
+                        whole=(1,))
     return _slstm_ffn(p, x + h.to(x.dtype), cfg)
+
+
+def _slstm_loop(wx, r, H: int):
+    """The recurrence over wx (B, S, 4M) with recurrent weights r (H, 4,
+    dh, dh) -> h (B, S, M) f32.  It runs head-major, (H, B, ...), so that a
+    token's recurrent product and its input term are one ``baddbmm``.  On
+    a dry run's fake tensors one token is traced and counted once a token
+    (``roofline.TracedLoop``)."""
+    B, S, M4 = wx.shape
+    dh = M4 // 4 // H
+    wx = wx.reshape(B, S, H, 4 * dh).permute(1, 2, 0, 3)   # (S, H, B, 4 dh)
+    r = r.permute(0, 2, 1, 3).reshape(H, dh, 4 * dh)       # r[h, d, g dh + e]
+    one = torch.ones((), dtype=torch.float32, device=wx.device)
+
+    def step(carry, wx_t, r):
+        h, c, n, m = carry
+        h, c, n, m = _slstm_recur(torch.baddbmm(wx_t, h, r).view(H, B, 4, dh), c, n, m, one)
+        return (h, c, n, m), h
+
+    def zero(distinct: bool):
+        f32 = torch.float32
+        h = torch.zeros((H, B, dh), dtype=f32, device=wx.device)
+        c, n = (torch.zeros_like(h), torch.zeros_like(h)) if distinct else (h, h)
+        return h, c, n, torch.full((H, B, dh), NEG, dtype=f32, device=wx.device)
+
+    with torch.profiler.record_function("slstm_loop"):
+        if isinstance(wx, FakeTensor) and S > 1:
+            hs = roofline.TracedLoop.apply(step, zero, 0, 0, 1, wx, r)
+        else:
+            carry, steps = zero(False), []
+            for wx_t in wx.unbind(0):      # one backward node, as ``split`` above
+                carry, h = step(carry, wx_t, r)
+                steps.append(h)
+            hs = torch.stack(steps)
+        # (S, H, B, dh) -> (B, S, M)
+        return hs.permute(2, 0, 1, 3).reshape(B, S, H * dh)
 
 
 def init_slstm_state(cfg, batch: int, layers: int | None = None, device="cuda") -> dict:
@@ -324,12 +364,18 @@ def init_slstm_state(cfg, batch: int, layers: int | None = None, device="cuda") 
 def slstm_decode(p: dict, x_t: torch.Tensor, state: dict, cfg) -> tuple[torch.Tensor, dict]:
     """One token. x_t: (B, M) -> (out (B, M), new state); ``state`` is not written."""
     B, M = x_t.shape
-    H, dh = cfg.n_heads, M // cfg.n_heads
     xn = rmsnorm(x_t, p["norm"], cfg.norm_eps)
     wx_t = xn.float() @ p["slstm_w"] + p["slstm_b"]
-    rec = torch.einsum("bhd,hgde->bhge", state["h"], p["slstm_r"])
-    pre = wx_t.reshape(B, H, 4, dh) + rec
-    one = torch.ones((), dtype=torch.float32, device=x_t.device)
-    h, c, n, m = _slstm_recur(pre, state["c"], state["n"], state["m"], one)
+    h, c, n, m = on_batch_shards(lambda *t: _slstm_cell(*t, cfg.n_heads), wx_t, state["h"],
+                                 state["c"], state["n"], state["m"], p["slstm_r"], whole=(5,),
+                                 n_out=4)
     out = _slstm_ffn(p, x_t + h.reshape(B, M).to(x_t.dtype), cfg)
     return out, {"h": h, "c": c, "n": n, "m": m}
+
+
+def _slstm_cell(wx_t, h, c, n, m, r, H: int):
+    """One token's cell: input term wx_t (B, 4M), state (B, H, dh)."""
+    rec = torch.einsum("bhd,hgde->bhge", h, r)
+    pre = wx_t.reshape(wx_t.shape[0], H, 4, h.shape[-1]) + rec
+    one = torch.ones((), dtype=torch.float32, device=wx_t.device)
+    return _slstm_recur(pre, c, n, m, one)

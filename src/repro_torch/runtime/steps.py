@@ -61,16 +61,6 @@ def _ep_ok(cfg) -> bool:
     return cfg.moe is None or cfg.moe.n_routed % MODEL_AXIS_SIZE == 0
 
 
-SHARDED_FAMILIES = ("dense",)
-
-
-def require_sharded(cfg) -> None:
-    """The families whose steps run on a mesh: the dense family so far."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the sharded steps of the {cfg.family} family "
-                                  "are not ported yet")
-
-
 def _check(what: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
     if tuple(t.shape) != shape or t.device.type != device.type:
         raise ValueError(f"{what}: got {tuple(t.shape)} on {t.device}, the step takes {shape} "
@@ -210,7 +200,6 @@ def make_train_step(cfg, opt_cfg: OptConfig, device="cuda", *, mesh=None, rules=
     require_ported(cfg)
     device = torch.device(device)
     if mesh is not None:
-        require_sharded(cfg)
         rules = _rules_for(cfg, rules)
         _, bsh = batch_specs_like(cfg, mesh, rules)
 
@@ -256,7 +245,6 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda", *, mesh=None,
     require_ported(cfg)
     device = torch.device(device)
     if mesh is not None:
-        require_sharded(cfg)
         rules = _rules_for(cfg, rules)
         vec = specs_to_shardings(("act_batch",), mesh, rules,
                                  torch.empty((batch,), device="meta"))   # batch 1 replicated
@@ -267,8 +255,10 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda", *, mesh=None,
                 return decode_step(params, cache, token, pos, cfg)
 
         def init(params):
-            with use_mesh_rules(mesh, rules):
-                return init_cache(params, cfg, batch, max_len)
+            # K/V made as DTensors, the rest cut here
+            with use_mesh_rules(mesh, rules), implicit_replication():
+                cache = init_cache(params, cfg, batch, max_len)
+            return distribute(cache, cache_shardings(cfg, mesh, batch, max_len, rules)[1])
 
         sharded.init_cache = init
         sharded.distribute = lambda params: distribute(
@@ -291,34 +281,49 @@ def make_prefill_step(cfg, shape, device="cuda", *, mesh=None, rules=None):
     For the audio family, ``step(params, frames, enc_lens) -> cache``:
     frames (B, Se, M) and enc_lens (B,) int32; the encoder pass, its
     ``enc_norm``, then a cache of ``seq_len`` self-attention slots with the
-    cross-attention K/V of the encoder's output."""
+    cross-attention K/V of the encoder's output.
+
+    With ``mesh``: DTensor params (``step.distribute(params)``), the global
+    tokens (or frames and enc_lens), sharded here as ``act_batch``."""
     require_ported(cfg)
     device = torch.device(device)
     B, S = shape.global_batch, shape.seq_len
+    if cfg.enc_dec:
+        @torch.no_grad()
+        def encode(params, frames, enc_lens):
+            pos = torch.arange(frames.shape[1], device=device)[None, :]
+            enc_out = encdec.encoder_apply(params["enc_layers"], frames.to(pdtype(cfg)), cfg, pos)
+            enc_out = rmsnorm(enc_out, params["enc_norm"], cfg.norm_eps)
+            return encdec.init_encdec_cache(params, cfg, B, S, enc_out, enc_lens)
+
     if mesh is not None:
-        require_sharded(cfg)
         rules = _rules_for(cfg, rules)
         tok = named_sharding(("act_batch", None), mesh, rules)
 
-        def sharded(params, tokens):
-            with use_mesh_rules(mesh, rules), implicit_replication():
-                return prefill(params, shard(tokens, tok), cfg, max_len=S)
+        if cfg.enc_dec:
+            fr = named_sharding(("act_batch", None, None), mesh, rules)
+            lens = specs_to_shardings(("act_batch",), mesh, rules,
+                                      torch.empty((B,), device="meta"))
+
+            def sharded(params, frames, enc_lens):
+                with use_mesh_rules(mesh, rules), implicit_replication():
+                    return encode(params, shard(frames, fr), shard(enc_lens, lens))
+        else:
+            def sharded(params, tokens):
+                with use_mesh_rules(mesh, rules), implicit_replication():
+                    return prefill(params, shard(tokens, tok), cfg, max_len=S)
 
         sharded.distribute = lambda params: distribute(
             params, state_shardings(cfg, mesh, rules, with_opt=False)[1])
         return sharded
 
     if cfg.enc_dec:
-        @torch.no_grad()
-        def encode(params, frames, enc_lens):
+        def checked(params, frames, enc_lens):
             _check("frames", frames, (B, *frames.shape[1:2], cfg.d_model), device)
             _check("enc_lens", enc_lens, (B,), device)
-            pos = torch.arange(frames.shape[1], device=device)[None, :]
-            enc_out = encdec.encoder_apply(params["enc_layers"], frames.to(pdtype(cfg)), cfg, pos)
-            enc_out = rmsnorm(enc_out, params["enc_norm"], cfg.norm_eps)
-            return encdec.init_encdec_cache(params, cfg, B, S, enc_out, enc_lens)
+            return encode(params, frames, enc_lens)
 
-        return encode
+        return checked
 
     def step(params, tokens):
         _check("tokens", tokens, (B, S), device)

@@ -30,7 +30,8 @@ from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 AxisRules = Mapping[str, Any]  # logical axis -> mesh axis | tuple | None
 
@@ -247,6 +248,30 @@ def constrain(x: torch.Tensor, axes: Sequence[Any]) -> torch.Tensor:
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
     return relayout(x, NamedSharding(mesh, spec).placements)
+
+
+def on_batch_shards(fn, *xs: torch.Tensor, whole: Sequence[int] = (), n_out: int = 1):
+    """``fn(*xs)`` on each rank's shard of the batch, for a computation
+    that treats each batch row alone: dim 0 of each argument sharded as
+    ``act_batch``, every other dim whole, and the ``n_out`` outputs laid
+    out the same.  The arguments at ``whole`` have no batch dim and are
+    replicated (their gradients ``Partial`` sums over the batch's mesh
+    dims).  Without an active mesh, or on plain tensors, ``fn(*xs)``."""
+    mesh = active_mesh()
+    if mesh is None or not any(isinstance(x, DTensor) for x in xs):
+        return fn(*xs)
+    rep = [Replicate()] * mesh.ndim
+    b = next(x for i, x in enumerate(xs) if i not in whole).shape[0]
+    pl = list(NamedSharding(mesh, _divisible(logical_spec(("act_batch",), mesh), (b,),
+                                             mesh)).placements)
+    grad = [Partial() if isinstance(a, Shard) else a for a in pl]
+    xs = [x if isinstance(x, DTensor) else DTensor.from_local(x, mesh, rep, run_check=False)
+          for x in xs]
+    return local_map(fn, out_placements=pl if n_out == 1 else (pl,) * n_out,
+                     in_placements=tuple(rep if i in whole else pl for i in range(len(xs))),
+                     in_grad_placements=tuple(grad if i in whole else pl
+                                              for i in range(len(xs))),
+                     device_mesh=mesh, redistribute_inputs=True)(*xs)
 
 
 def relayout(x: DTensor, placements: Sequence) -> DTensor:

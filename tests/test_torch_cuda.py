@@ -648,3 +648,38 @@ def test_sharded_steps_on_a_1x1_mesh_equal_the_one_device_steps(card):
     assert (gf, gd) == (rf, rd) == (cfg.n_layers * 3, cfg.n_layers * 2)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+def test_moe_decode_on_a_1x1_mesh_equals_the_one_device_decode(card):
+    """qwen2-moe's smoke config in bf16 at heads of 128: four decode steps
+    through the sharded factory on a 1 x 1 mesh (a world of one NCCL rank)
+    equal the ``mesh=None`` steps bit for bit (logits and cache), the MoE
+    grouped by expert on the rank's local tensors, and launch the decode
+    kernel inside ``local_map`` as often."""
+    from repro_torch.launch.mesh import launcher_mesh
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime.steps import full, make_decode_step
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b").replace(d_head=128)
+    params = tm.init_params(cfg, seed=6, device=card)
+    g = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 4), generator=g, dtype=torch.int32).to(card)
+    pos = torch.tensor([0, 5, 11], dtype=torch.int32, device=card)
+
+    def run(mesh):
+        dec = make_decode_step(cfg, 3, 16, card, mesh=mesh)
+        p = params if mesh is None else dec.distribute(params)
+        cache, outs, n = dec.init_cache(p), [], decode_attention.launches
+        for i in range(4):
+            logits, cache = dec(p, cache, tokens[:, i], pos + i)
+            outs.append(full(logits))
+        torch.cuda.synchronize()
+        return outs + [full(t) for t in tree_leaves(cache)], decode_attention.launches - n
+
+    ref, n_ref = run(None)
+    with launcher_mesh(1, 1, card) as mesh:
+        got, n_got = run(mesh)
+    assert n_got == n_ref == 4 * cfg.n_layers
+    assert len(got) == len(ref)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

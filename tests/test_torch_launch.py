@@ -29,7 +29,7 @@ def test_train_saves_resumes_and_continues_as_one_run(tmp_path, capsys):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     ttrain.main(TRAIN + ["--steps", "4", "--ckpt-dir", a])
     first = capsys.readouterr().out.splitlines()
-    assert first[0] == "arch=qwen2-moe-a2.7b-smoke device=cpu batch=2 seq=16"
+    assert first[0] == "arch=qwen2-moe-a2.7b-smoke device=cpu mesh=1x1 batch=2 seq=16"
     assert re.fullmatch(r"step    0 loss=[0-9.]+ \([0-9.]+ it/s\)", first[1])
     assert first[-1] == "done" and tck.committed_steps(a) == [2, 4]
     metrics = ttrain.main(TRAIN + ["--steps", "6", "--ckpt-dir", a])

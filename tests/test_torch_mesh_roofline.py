@@ -183,3 +183,75 @@ def test_model_made_tensors_and_the_sharded_ce_move_nothing():
         assert "all_reduce" in names and names <= {"all_reduce", "reduce_scatter_tensor"}, names
         assert max(b for _, b, _ in c.collectives) <= 2 * 8 * 4       # (B / 2, S) f32 rows
         assert ce.shape == (4, 8)
+
+
+def test_kernel_formulas_at_heads_of_64_and_for_cross_attention():
+    """The formulas at seamless's heads of 64: the encoder's flash call
+    (non-causal), cross-attention's (Sq != Skv, every pair visible) and
+    both decode calls (self-attention, and cross-attention over the
+    encoder's frames): ``4 D`` a visible pair or cache slot and q head."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    g = torch.Generator().manual_seed(0)
+    for sq, skv, causal in [(9, 9, False), (5, 13, False), (5, 13, True)]:
+        q, k = torch.randn(2, sq, 4, 64, generator=g), torch.randn(2, skv, 4, 64, generator=g)
+        with roofline.CostCounter() as c:
+            flash_attention(q, k, k, causal=causal)
+        assert c.flops == 4 * 2 * 4 * 64 * (_visible(sq, skv) if causal else sq * skv)
+        assert c.bytes == 2 * q.numel() * 4 + 2 * k.numel() * 4
+    qd, cache = torch.randn(3, 4, 64, generator=g), torch.randn(3, 11, 4, 64, generator=g)
+    with roofline.CostCounter() as c:
+        decode_attention(qd, cache, cache, torch.tensor([11, 3, 6], dtype=torch.int32))
+    assert c.flops == 4 * 3 * 4 * 64 * 11
+
+
+def _slstm(gen):
+    from repro_torch.models.xlstm import _slstm_loop
+
+    H, dh = 2, 8
+    wx, r = torch.randn(3, 7, 4 * H * dh, generator=gen), torch.randn(H, 4, dh, dh, generator=gen)
+    return lambda wx, r: _slstm_loop(wx, r, H), [wx, r]
+
+
+def _mamba(gen):
+    from repro_torch.models.mamba import _scan
+
+    B, S, D, N = 2, 12, 5, 3
+    dt, x1f = (torch.rand(B, S, D, generator=gen) for _ in range(2))
+    Bs, Cs = (torch.randn(B, S, N, generator=gen) for _ in range(2))
+    return (lambda *t: _scan(*t, 4),
+            [dt, Bs, Cs, x1f, -torch.rand(D, N, generator=gen), torch.randn(D, generator=gen)])
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("loop", [_slstm, _mamba], ids=["slstm", "mamba"])
+def test_loop_traced_once_counts_the_loop(loop, grad):
+    """A dry run's fake tensors trace the sLSTM's token loop (and the Mamba
+    scan's chunk loop) for the first trip once and count it once a trip
+    (``roofline.TracedLoop``): the flops and the bytes of the major ops
+    equal those of the loop run trip by trip on real tensors, forward and
+    (the carry's gradient left out at the first trip) backward; so do the
+    raw bytes of the forward.  The raw bytes of the backward (gradient
+    sums) and the live bytes are near, not equal."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def count(fake):
+        fn, args = loop(torch.Generator().manual_seed(0))
+        mode = FakeTensorMode() if fake else None
+        with mode if fake else torch.enable_grad():
+            if fake:
+                args = [mode.from_tensor(t) for t in args]
+            args = [t.requires_grad_(grad) for t in args]
+            with roofline.CostCounter(existing=args) as c:
+                out = fn(*args)
+                if grad:
+                    torch.autograd.grad(out.sum(), args)
+        return c
+
+    real, traced = count(False), count(True)
+    assert (traced.flops, traced.bytes) == (real.flops, real.bytes) and real.flops > 0
+    if not grad:
+        assert traced.bytes_raw == real.bytes_raw
+    assert abs(traced.bytes_raw / real.bytes_raw - 1) < 0.2
+    assert abs(traced.peak / real.peak - 1) < 0.3

@@ -47,10 +47,10 @@ def test_baseline_collectives(results, step):
         assert ("reduce_scatter_tensor", "data") in seen, seen
 
 
-def test_launchers_on_a_1x1_mesh(capsys):
-    """``--mesh-data 1 --mesh-model 1`` (the default) runs the dense
-    family through the sharded steps in a world of one rank: the same
-    tokens and losses as the one-device steps; the world is gone after."""
+def _launchers_equal_one_device(arch: str, capsys) -> None:
+    """``--mesh-data 1 --mesh-model 1`` (the default) runs ``arch`` through
+    the sharded steps in a world of one rank: the same tokens and losses as
+    the one-device steps; the world is gone after."""
     import torch
     import torch.distributed as dist
 
@@ -61,17 +61,17 @@ def test_launchers_on_a_1x1_mesh(capsys):
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.runtime.steps import make_decode_step, make_train_step
 
-    logits = serve.main(["--arch", "llama3-8b", "--batch", "2", "--gen", "3", "--device", "cpu"])
-    cfg = get_smoke_config("llama3-8b")
+    logits = serve.main(["--arch", arch, "--batch", "2", "--gen", "3", "--device", "cpu"])
+    cfg = get_smoke_config(arch)
     step, params = make_decode_step(cfg, 2, 4, "cpu"), init_params(cfg, 0, "cpu")
     cache, tok = step.init_cache(params), torch.zeros((2,), dtype=torch.int32)
     for i in range(3):
         ref, cache = step(params, cache, tok, torch.full((2,), i, dtype=torch.int32))
         tok = ref.argmax(dim=-1).to(torch.int32)
     assert torch.equal(logits, ref)
-    metrics = train.main(["--arch", "llama3-8b", "--steps", "2", "--batch", "2", "--seq", "16",
+    metrics = train.main(["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16",
                           "--device", "cpu"])
-    assert capsys.readouterr().out.splitlines()[-4].startswith("arch=llama3-8b-smoke device=cpu "
+    assert capsys.readouterr().out.splitlines()[-4].startswith(f"arch={cfg.name} device=cpu "
                                                                  "mesh=1x1")
     tstep, params = make_train_step(cfg, OptConfig(), "cpu"), init_params(cfg, 0, "cpu")
     opt, pipe = init_opt_state(params), DataPipeline(cfg.vocab_size, 16, 2, seed=0, mode="markov")
@@ -82,12 +82,19 @@ def test_launchers_on_a_1x1_mesh(capsys):
     assert not dist.is_initialized()
 
 
-def test_launchers_refuse_a_mesh_the_world_does_not_have():
+def test_launchers_on_a_1x1_mesh(capsys):
+    _launchers_equal_one_device("llama3-8b", capsys)
+
+
+def test_launchers_refuse_a_mesh_the_world_does_not_have(capsys):
+    """A mesh larger than the world raises, whatever the family; the moe
+    family's launchers run on a 1 x 1 mesh as the dense family's do."""
     from repro_torch.launch import serve, train
 
     with pytest.raises(ValueError, match="needs a world of 4 ranks"):
         serve.main(["--arch", "llama3-8b", "--gen", "2", "--device", "cpu",
                     "--mesh-data", "2", "--mesh-model", "2"])
-    with pytest.raises(NotImplementedError, match="moe family"):
+    with pytest.raises(ValueError, match="needs a world of 2 ranks"):
         train.main(["--arch", "qwen2-moe-a2.7b", "--steps", "1", "--device", "cpu",
                     "--mesh-model", "2"])
+    _launchers_equal_one_device("qwen2-moe-a2.7b", capsys)
