@@ -206,6 +206,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
    are (bit for bit, its attention kernel launched, flops == the dry run's
    full trace, peak ratio in [0.8, 1.25]).
 
+13. The sweep over devices and the elastic loop on a ``DeviceMesh``, in a
+   world of one NCCL rank.  (a) Phase 7's 64-trace time-sharing and RL
+   sweeps again through ``sweep(traces, devices=[card])`` (one device: the
+   unsharded sweep, the reference's fallback from ``pmap``) and through a
+   1-D ``DeviceMesh`` of the one rank (the batch sharded and all-gathered):
+   each field must equal phase 7's ``sweep(traces)`` bit for bit; the
+   seconds of each beside phase 7's.  (b) ``runtime/elastic.py:
+   ElasticTrainer`` on a 1 x 1 ``DeviceMesh`` over the sharded
+   ``make_train_step`` at xlstm-125m's published size (no cut; 8 x 128
+   markov tokens, ``OptConfig()``, weights of seed 0, as phase 10 (e)'s
+   launcher), a checkpoint every 3 steps: a trainer to 6 steps, then a
+   second one on the same directory to 9.  Its log must be ``resumed@6``,
+   ``ckpt@9``, the restored DTensor leaves must equal what was saved at 6
+   bit for bit (bf16 leaves as bf16), steps 7-9's losses must lie within
+   1e-5 relative of the uninterrupted run's (the first trainer's state
+   stepped on to 9), and a ``FailureEvent`` of the mesh's one row must
+   raise the reference's ``RuntimeError("all data rows failed")``.  NCCL
+   refuses two ranks on one card, so the shrink is held on 4 gloo ranks by
+   ``tests/test_torch_elastic_mesh.py``.  No hand-written kernel runs in
+   this phase.
+
 The line before the last is the ``{"kernels": [...]}`` record; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -1458,14 +1479,15 @@ def timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
+def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda") -> dict:
     """Phase 7: the vectorized cluster simulator on the card at phase 6's
     settings — time sharing and phase 4's agent on phase 6's trace (equal
     to the heap runs of phase 6), sweeps of 64 poisson traces, a population
     of 4 agents, the (8, 8, 4, 4) hash-routed fleet, the rollout collector
     card against CPU, and the re-trainer on the queueing reward.  ``dev``
     is the engines' device (the card; a dry run of the script's logic may
-    pass the CPU)."""
+    pass the CPU).  Returns the two 64-trace sweeps (engine, summary,
+    seconds) and their traces, which phase 13 runs again over devices."""
     from repro_torch.core import EnvConfig, make_zoo
     from repro_torch.core.agent import DQNAgent
     from repro_torch.online import (
@@ -1494,6 +1516,7 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
                                     capacity=SWEEP_CAPACITY, device=dev)
     check_parity(heap["time_sharing"], ts.run(trace), "time sharing, card engine")
     summ, sec = timed(torch, lambda: ts.sweep(traces))
+    ts_sec = sec
     st = ts._runf.stats
     check_rows(summ, {i: ts.run(traces[i]) for i in probe}, "time-sharing sweep")
     n_heap = min(8, SWEEP_TRACES)
@@ -1511,6 +1534,7 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
     res_rl, sec1 = timed(torch, lambda: rl.run(trace))
     check_parity(heap["rl"], res_rl, "RL, card engine")
     summ_rl, sec = timed(torch, lambda: rl.sweep(traces))
+    rl_sec = sec
     st = rl._runf.stats
     check_rows(summ_rl, {i: rl.run(traces[i]) for i in probe}, "RL sweep")
     n_heap = min(4, SWEEP_TRACES)
@@ -1615,6 +1639,7 @@ def phase_vecsim(torch, card, agent, trace, heap, dev: str = "cuda"):
         f"{heap['rl'].throughput / ts_tp:.3f}), mean wait {res.mean_wait / 60:.1f} min, "
         f"p99 {res.p99_wait / 60:.1f} min; {len(retrainer.history)} cycles, run {sec:.1f} s")
     say(f"[7] phase 7 took {time.perf_counter() - t_phase:.1f} s  ({card})")
+    return {"time sharing": (ts, summ, ts_sec), "RL": (rl, summ_rl, rl_sec), "traces": traces}
 
 
 # ---------------------------------------------------------------------------
@@ -3288,6 +3313,197 @@ def phase_families_multi_device(torch, card, work: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sweep over devices and the elastic loop on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# (b) ElasticTrainer at xlstm-125m full, the config of phase 10 (e)'s launcher
+ELASTIC_MESH_ARCH = "xlstm-125m"
+ELASTIC_MESH_BATCH, ELASTIC_MESH_SEQ = 8, 128
+ELASTIC_MESH_EVERY = 3
+ELASTIC_MESH_STEPS = (6, 9)      # the first trainer's steps, then the second's
+
+
+def phase_sweep_devices(torch, card, sweeps: dict, lanes) -> None:
+    """(a) Phase 7's two 64-trace sweeps again, through ``devices=[card]``
+    (one device: the unsharded sweep, as the reference's ``pmap`` falls
+    back) and through ``lanes``, a 1-D ``DeviceMesh`` of one NCCL rank
+    (the batch's one shard, all-gathered): each field of each must equal
+    phase 7's summary bit for bit."""
+    dev = (torch.device("cuda", torch.cuda.current_device()) if lanes.device_type == "cuda"
+           else torch.device(lanes.device_type))
+    for name in ("time sharing", "RL"):
+        eng, want, sec7 = sweeps[name]
+        for form, devices in (("devices=[card]", [dev]), ("devices=DeviceMesh(1 rank)", lanes)):
+            got, sec = timed(torch, lambda: eng.sweep(sweeps["traces"], devices=devices))
+            bad = [f for f, a, b in zip(want._fields, got, want) if not torch.equal(a, b)]
+            say(f"[13] (a) {name} sweep of {len(sweeps['traces'])} traces, {form}: {sec:.3f} s "
+                f"(phase 7's sweep(traces): {sec7:.3f} s); every field == phase 7's bit for bit: "
+                f"{not bad}  ({card})")
+            if bad:
+                fail(f"{name} sweep with {form} differs from phase 7's in {bad}")
+
+
+def phase_elastic_mesh(torch, card, mesh, cfg=None) -> dict:
+    """(b) ``ElasticTrainer`` on a 1 x 1 ``DeviceMesh`` (``mesh``) over the
+    sharded ``make_train_step`` at xlstm-125m's published size: one
+    trainer to 6 steps with a checkpoint every 3, its state then stepped on
+    to 9 (the uninterrupted run), a second trainer on the same directory to
+    9.  NCCL refuses two ranks on one card, so the shrink does not run here:
+    ``tests/test_torch_elastic_mesh.py`` holds it on 4 gloo ranks.  Returns
+    the kernel launches of the trainers' steps.  ``cfg`` replaces the
+    config and a mesh of CPU ranks runs on the CPU (a rehearsal of the
+    script's logic)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, batch_to_device
+    from repro_torch.models.model import count_params_analytic, init_params
+    from repro_torch.optim import OptConfig, tree_leaves
+    from repro_torch.runtime.elastic import ElasticTrainer, FailureEvent
+    from repro_torch.runtime.steps import full, make_train_step
+
+    free(torch)
+    cfg = cfg or get_config(ELASTIC_MESH_ARCH)
+    device = mesh.device_type
+    pipe = DataPipeline(cfg.vocab_size, ELASTIC_MESH_SEQ, ELASTIC_MESH_BATCH, seed=0,
+                        mode="markov")
+    losses, saved, restored = [], [], []
+    secs = {"step": [], "checkpoint": [], "restore": []}
+
+    def make_step(mesh):
+        step = make_train_step(cfg, OptConfig(), device, mesh=mesh)
+
+        def fn(state, batch):
+            t = time.perf_counter()
+            params, opt, metrics = step(state["params"], state["opt"], batch)
+            losses.append(metrics["loss"].item())
+            secs["step"].append(time.perf_counter() - t)
+            return {"params": params, "opt": opt}
+        return fn
+
+    def init_state(mesh):
+        params, opt = make_train_step(cfg, OptConfig(), device, mesh=mesh).distribute(
+            init_params(cfg, 0, device))
+        return {"params": params, "opt": opt}
+
+    def batch_fn(step, mesh):
+        return batch_to_device(pipe.batch(step), device)
+
+    class Trainer(ElasticTrainer):          # compares what it loads with what it saved
+        def _commit(self, step, state, mesh):
+            self.at, t = step, time.perf_counter()
+            super()._commit(step, state, mesh)
+            secs["checkpoint"].append(time.perf_counter() - t)
+
+        def _dump(self, state):
+            tree = ElasticTrainer._dump(state)
+            if self.at == first:      # what was written; a leaf the state holds is copied
+                saved.extend(t if t.device.type != device else t.clone()
+                             for t in tree_leaves(tree))
+            return tree
+
+        def _load(self, template, tree, mesh):
+            t = time.perf_counter()
+            out = ElasticTrainer._load(template, tree, mesh)
+            secs["restore"].append(time.perf_counter() - t)
+            leaves = tree_leaves(out)
+            restored.append({
+                "dtensors": sum(type(t).__name__ == "DTensor" for t in leaves),
+                "equal": len(leaves) == len(saved) and all(
+                    a.dtype == b.dtype and torch.equal(full(a), b.to(full(a).device))
+                    for a, b in zip(leaves, saved))})
+            return out
+
+    first, second = ELASTIC_MESH_STEPS
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_mesh_"))
+    t0 = time.perf_counter()
+    try:
+        reset_launches()
+        tr1 = Trainer(make_step, init_state, str(work / "ckpt"), ckpt_every=ELASTIC_MESH_EVERY)
+        state, _ = tr1.run(mesh, first, batch_fn)
+        t_first = time.perf_counter() - t0
+        # the uninterrupted run: the first trainer's state stepped on
+        step = make_step(mesh)
+        for s in range(first, second):
+            state = step(state, batch_fn(s, mesh))
+        whole = losses[:]
+        del state, step
+        free(torch)
+        losses.clear()
+        t1 = time.perf_counter()
+        tr2 = Trainer(make_step, init_state, str(work / "ckpt"), ckpt_every=ELASTIC_MESH_EVERY)
+        state, _ = tr2.run(mesh, second, batch_fn)
+        t_second = time.perf_counter() - t1
+        launches = read_launches()
+        resumed = losses[:]
+        del state
+        free(torch)
+        try:
+            ElasticTrainer(lambda m: None, lambda m: None, str(work / "none")).run(
+                mesh, 1, batch_fn, failures=[FailureEvent(0, [0])])
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = count_params_analytic(cfg)
+    dtypes = sorted({str(t.dtype).removeprefix("torch.") for t in saved})
+    n_bf16 = sum(t.dtype == torch.bfloat16 for t in saved)
+    equal = len(restored) == 1 and restored[0]["equal"]
+    dtensors = restored[0]["dtensors"] if restored else 0
+    say(f"[13] (b) ElasticTrainer on a 1 x 1 DeviceMesh ({torch.distributed.get_backend()}), "
+        f"{cfg.name} ({n / 1e6:.1f} M params, checkpoint {14 * n / 1e9:.2f} GB), "
+        f"{ELASTIC_MESH_BATCH} x {ELASTIC_MESH_SEQ} markov tokens, a checkpoint every "
+        f"{ELASTIC_MESH_EVERY}: trainer 1 to {first} in {t_first:.1f} s, log {tr1.log}; "
+        f"trainer 2 to {second} in {t_second:.1f} s, log {tr2.log}; seconds: steps "
+        f"{', '.join(f'{x:.2f}' for x in secs['step'])}, checkpoints "
+        f"{', '.join(f'{x:.2f}' for x in secs['checkpoint'])} (gather, copy to the host, "
+        f"write), restore {', '.join(f'{x:.2f}' for x in secs['restore'])} (onto the mesh)")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[first:])) if resumed else None
+    say(f"[13] (b) restored {len(saved)} leaves ({dtensors} DTensors; {', '.join(dtypes)}; "
+        f"{n_bf16} bf16 leaves as bf16) == saved at step {first}, bit for bit: {equal}; losses "
+        f"of steps {first + 1}-{second} {[f'{x:.4f}' for x in resumed]} against the "
+        f"uninterrupted run's {[f'{x:.4f}' for x in whole[first:]]}: largest relative "
+        f"difference {worst} (bound {ELASTIC_LOSS_TOL:g}); a failure of the 1 x 1 mesh's row "
+        f"raises {raised!r}; launches {launches}  ({card})")
+    if tr1.log != [f"ckpt@{s}" for s in range(ELASTIC_MESH_EVERY, first + 1, ELASTIC_MESH_EVERY)]:
+        fail(f"ElasticTrainer on the mesh: first log {tr1.log}")
+    if tr2.log != [f"resumed@{first}"] + [f"ckpt@{s}" for s in range(
+            first + ELASTIC_MESH_EVERY, second + 1, ELASTIC_MESH_EVERY)]:
+        fail(f"ElasticTrainer on the mesh: second log {tr2.log}")
+    if not equal or (cfg.dtype == "bfloat16" and not n_bf16) or dtensors != len(saved) - 1:
+        fail("ElasticTrainer on the mesh: the restored DTensor state differs from the saved one")
+    if len(resumed) != second - first or not all(math.isfinite(x) for x in whole + resumed) \
+            or not worst <= ELASTIC_LOSS_TOL:
+        fail("ElasticTrainer on the mesh: the losses after the resume differ from the "
+             "uninterrupted run's")
+    if raised != "all data rows failed":
+        fail(f"a failure of the 1 x 1 mesh's only row raised {raised!r}")
+    return launches
+
+
+def phase_mesh_loops(torch, card, sweeps: dict) -> dict:
+    """Phase 13 in a world of one NCCL rank; returns (b)'s launches."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import launcher_mesh
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    with launcher_mesh(1, 1, "cuda") as mesh:
+        lanes = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("lanes",))
+        phase_sweep_devices(torch, card, sweeps, lanes)
+        swept = read_launches()
+        launches = phase_elastic_mesh(torch, card, mesh)
+    if any(swept.values()) or any(launches.values()):
+        fail(f"phase 13 launched hand-written kernels: {swept}, {launches}")
+    say(f"[13] phase 13 took {time.perf_counter() - t_phase:.1f} s, no hand-written kernel "
+        f"launched  ({card})")
+    return launches
+
+
 def main() -> None:
     import shutil
     import tempfile
@@ -3320,7 +3536,7 @@ def main() -> None:
     done(5)
     trace, heap = phase_online(torch, card, agent)
     done(6)
-    phase_vecsim(torch, card, agent, trace, heap)
+    sweeps = phase_vecsim(torch, card, agent, trace, heap)
     done(7)
     families = phase_families(torch, card)
     done(8)
@@ -3336,13 +3552,15 @@ def main() -> None:
         done(12)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mesh_loops = phase_mesh_loops(torch, card, sweeps)
+    done(13)
     # launches on the main paths: the co-run pair, training the co-scheduler,
     # the train pair, step 4's pair, phases 8 and 9's serving runs, phase
-    # 10's training runs and phases 11 and 12's sharded steps (no path of
-    # the package calls rmsnorm)
+    # 10's training runs, phases 11 and 12's sharded steps and phase 13's
+    # elastic trainers, which launch none (no path of the package calls rmsnorm)
     launches = {name: pair[name] + train[name] + lm_pair[name] + step4[name] + families[name]
                 + audio[name] + family_train[name] + multi[name] + multi12[name]
-                for name in pair}
+                + mesh_loops[name] for name in pair}
     sources = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention/kernel.py:75"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

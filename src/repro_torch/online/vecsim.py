@@ -60,8 +60,11 @@ to f32 once; only true co-run groups take the f32 batched model
 
 The engine's device work is batched torch code (no hand-written kernel):
 entry points run on ``device="cuda"`` unless the caller passes
-``device="cpu"``.  ``sweep(devices=...)`` (the reference's ``pmap`` over
-host devices) is not ported and raises.
+``device="cpu"``.  ``sweep(devices=...)`` is the reference's ``pmap`` over
+devices: a list of one device, or of a count that does not divide the
+batch, runs the unsharded sweep as the reference does; torch's form of
+``pmap`` is one process a card, so the batch is sharded over a 1-D
+``DeviceMesh`` whose every rank calls ``sweep`` (:meth:`VectorizedClusterSimulator.sweep`).
 """
 from __future__ import annotations
 
@@ -70,6 +73,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.network import greedy_q_action
 from repro_torch.core.partition import (
@@ -1580,24 +1585,37 @@ class VectorizedClusterSimulator:
 
     # -------------------------------------------------------------- sweep
 
-    def sweep(self, traces: list[list[Arrival]], devices: list | None = None,
-              with_metrics: bool = False, param_sets=None):
+    def sweep(self, traces: list[list[Arrival]], devices=None, with_metrics: bool = False,
+              param_sets=None):
         """Run ``traces`` as the lanes of one engine call.
 
         With ``with_metrics=True`` (a ``telemetry=True`` engine) returns
-        ``(SweepSummary, MetricsState)``, batch axis leading.
+        ``(SweepSummary, MetricsState)``, batch axis leading; a telemetry
+        engine keeps the metrics in ``last_sweep_metrics`` either way.
 
         ``param_sets`` (RL engines only): a list of DQN param dicts (or one
         dict of stacked leaves) adds a leading *population* axis — the
         summary's lanes are ``(n_params, n_traces)``, every agent scored on
-        every trace in one call.  Exclusive of ``with_metrics``.
+        every trace in one call.  Exclusive of ``with_metrics``; ``devices``
+        is ignored, as the reference ignores it there.
 
-        ``devices`` (the reference's ``pmap`` over host devices) is not
-        ported: it raises ``NotImplementedError``.
+        ``devices`` shards the batch, as the reference's ``pmap`` does:
+
+        * a list: one device, or a count that does not divide
+          ``len(traces)``, runs the unsharded sweep (which device is not
+          read, as the reference's fallback does not read it).  Otherwise
+          it raises ``ValueError``: a device listed twice, as ``pmap``
+          refuses it; several distinct devices, since the port runs one
+          process a card and shards over a ``DeviceMesh``.
+        * a 1-D ``DeviceMesh`` whose every rank calls ``sweep`` with the
+          same traces, each on an engine on its own device: rank ``r`` runs
+          lanes ``[r*k, (r+1)*k)``, ``k = len(traces) // mesh.size()``
+          (the reference's ``reshape((n_dev, T // n_dev))``), and the lanes
+          of the summary and the metrics are all-gathered over the mesh's
+          group, so every rank returns the whole batch.  A size that does
+          not divide the batch runs it unsharded on every rank.  The error
+          lanes are read after the gather, so every rank raises alike.
         """
-        if devices is not None:
-            raise NotImplementedError(
-                "sweep(devices=...) shards over several devices; the port runs one")
         if not traces:
             raise ValueError("empty sweep")
         if with_metrics and not self.telemetry:
@@ -1627,18 +1645,54 @@ class VectorizedClusterSimulator:
                 summ = SweepSummary(*(x.reshape(G, T) for x in _summary_rl(st, rep, jt)))
                 self._check_err(int(summ.err.max()))
                 return summ
-            out = self._runf(batch, jt, self._params(), self._widths(T))
         else:
             jt = build_job_table(jobs, self.device)
-            out = self._runf(batch, jt, self._widths(T))
-        if self.telemetry:
-            st, ms = out
-            self.last_sweep_metrics = ms
+        group = self._shard_group(devices, T)
+        if group is not None:
+            n = dist.get_world_size(group)
+            k = T // n
+            lo = dist.get_rank(group) * k
+            batch = TraceArrays(*(x[lo:lo + k] for x in batch))
+        if self._rl:
+            out = self._runf(batch, jt, self._params(), self._widths(batch.t.shape[0]))
         else:
-            st = out
+            out = self._runf(batch, jt, self._widths(batch.t.shape[0]))
+        st, ms = out if self.telemetry else (out, None)
         summ = _summary_rl(st, batch, jt) if self._rl else _summary(st, batch, jt)
+        if group is not None:
+            summ = _all_gather_lanes(summ, group)
+            ms = None if ms is None else _all_gather_lanes(ms, group)
+        if self.telemetry:
+            self.last_sweep_metrics = ms
         self._check_err(int(summ.err.max()))
         return (summ, ms) if with_metrics else summ
+
+    def _shard_group(self, devices, T: int):
+        """The process group whose ranks split the batch, or None for the
+        unsharded sweep (see :meth:`sweep`)."""
+        if isinstance(devices, DeviceMesh):
+            if devices.ndim != 1:
+                raise ValueError(f"sweep shards over a 1-D DeviceMesh; got "
+                                 f"{devices.ndim} dims {devices.mesh_dim_names}")
+            if devices.get_coordinate() is None:
+                raise ValueError(f"rank {dist.get_rank()} is not in the sweep's mesh "
+                                 f"{devices.mesh.tolist()}")
+            here = (torch.device("cuda", torch.cuda.current_device())
+                    if devices.device_type == "cuda" else torch.device(devices.device_type))
+            if not same_device(here, self.device):
+                raise ValueError(f"this rank's device of the mesh is {here}, the vectorized "
+                                 f"engine's {self.device}: build each rank's engine on its "
+                                 f"own device")
+            return devices.get_group() if T % devices.size() == 0 else None
+        n_dev = len(devices) if devices else 1
+        if n_dev == 1 or T % n_dev:
+            return None
+        keys = [_device_key(d) for d in devices]
+        if len(set(keys)) < len(keys):
+            raise ValueError(f"sweep: devices {keys} list a device more than once")
+        raise ValueError(f"sweep over {n_dev} devices: the port runs one process a device; "
+                         f"shard the batch over a 1-D DeviceMesh (devices=mesh), whose every "
+                         f"rank calls sweep")
 
     @staticmethod
     def _check_err(err: int) -> None:
@@ -1648,6 +1702,27 @@ class VectorizedClusterSimulator:
             raise RuntimeError("vectorized engine: event-step budget exceeded (stuck trace?)")
         if err:
             raise RuntimeError(f"vectorized engine: error lanes {err:#x}")
+
+
+def _device_key(d):
+    """A device of a ``sweep(devices=[...])`` list as a hashable key: a
+    ``torch.device`` (or its name) by its name, any other device object
+    (a JAX device, say) as it is."""
+    if isinstance(d, (str, torch.device)):
+        return str(torch.device(d))
+    return d
+
+
+def _all_gather_lanes(tree, group):
+    """A NamedTuple of lanes (leading axis ``k`` on each rank) with every
+    rank's lanes of ``group``, in rank order (a collective)."""
+    out = []
+    for x in tree:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        out.append(torch.cat(parts))
+    return type(tree)(*out)
 
 
 class VectorizedFleetSimulator:

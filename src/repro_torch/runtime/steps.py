@@ -137,22 +137,28 @@ def cache_shardings(cfg, mesh, batch: int, max_len: int, rules=None):
     return cache, specs_to_shardings(cspecs, mesh, rules, abstract_tree=cache)
 
 
+def local_shard(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of a full tensor ``t`` under ``placements`` on
+    ``mesh`` (a view where nothing is cut)."""
+    for d in range(t.ndim):
+        idx, n = shard_offset(mesh, placements, d)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of a {tuple(t.shape)} tensor does not divide into {n} "
+                             f"shards ({placements})")
+        if n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, idx * size, size).contiguous()
+    return t
+
+
 def shard(t: torch.Tensor, sharding) -> torch.Tensor:
     """This rank's shard of a full tensor ``t`` (every rank holds it
     alike) as a DTensor of ``sharding``; no collective, and no copy where
     nothing is cut.  A DTensor passes through."""
     if isinstance(t, DTensor):
         return t
-    pl = sharding.placements
-    for d in range(t.ndim):
-        idx, n = shard_offset(sharding.mesh, pl, d)
-        if t.shape[d] % n:
-            raise ValueError(f"dim {d} of a {tuple(t.shape)} tensor does not divide into {n} "
-                             f"shards ({sharding.spec})")
-        if n > 1:
-            size = t.shape[d] // n
-            t = t.narrow(d, idx * size, size).contiguous()
-    return DTensor.from_local(t, sharding.mesh, pl, run_check=False)
+    return DTensor.from_local(local_shard(t, sharding.mesh, sharding.placements),
+                              sharding.mesh, sharding.placements, run_check=False)
 
 
 def distribute(tree, shardings):

@@ -253,8 +253,10 @@ def test_full_ready_ring_sets_its_error_lane():
 def test_unsupported_policy_devices_and_empty():
     with pytest.raises(ValueError, match="TimeSharingPolicy or RLDispatchPolicy"):
         tv.VectorizedClusterSimulator(to.GreedyPackerPolicy(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        _ts().sweep([_trace("poisson", 5, 0, 1.0)], devices=jax.devices())
+    # one device: the unsharded sweep, as the reference's fallback from pmap
+    one = [_trace("poisson", 5, 0, 1.0)]
+    for a, b in zip(_ts().sweep(one), _ts().sweep(one, devices=jax.devices())):
+        assert torch.equal(a, b)
     res = _ts().run([])
     assert res.jobs == [] and res.makespan == 0.0
     with pytest.raises(ValueError, match="empty"):
