@@ -11,8 +11,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    the main path gives it, in bfloat16 and float32, timed beside its bound
    and beside one PyTorch library call computing the same function (kernel
    and library call as device time, replayed from a CUDA graph; the plain
-   version eagerly).  Flash attention also runs right-aligned (Sq 1000
-   against Skv 8192) and at the edges of its bf16 kernel's 128-row tiles
+   version eagerly); flash attention's bound also counts one exponential a
+   visible pair and head at the exp unit's rate (``bound_by`` "exp" where
+   that term is the largest).  Flash attention also runs right-aligned (Sq
+   1000 against Skv 8192) and at the edges of its bf16 kernel's 128-row tiles
    (Sq, Skv of 127, 129, 1000, causal and not, Sq > Skv with rows that see
    no key) and at phase 8's head groups (16/16 and 64/8 heads at 1 x
    8192).  Decode attention also runs with a row of length 0.  RMSNorm
@@ -23,9 +25,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
    package calls it, so its wrapper's own entry point is its path.  Both
    attention kernels also run at heads of 64 (seamless-m4t's), bf16 and
    f32: flash at the encoder's 16 x 4096 x 4096 (16/16 heads, non-causal)
-   and at 512 queries against 4096 keys (timed), and at the 128-row tile
-   edges; decode at (16, 8192, 16, 64) with a row of length 0 and at (16,
-   4096, 16, 64), both at ragged lengths and timed.
+   and at 512 queries against 4096 keys (timed), at the edges of its
+   kv tiles (128 rows) and q tiles (128 rows on a small grid, 192 on a
+   large one), at a head group of 8 (16/2) and with scores that rise along
+   the keys, so that a row's max moves in the last kv tile (the conditional
+   rescale of O); decode at (16, 8192, 16, 64) with a row of length 0 and
+   at (16, 4096, 16, 64), both at ragged lengths and timed.
 2. The RL co-scheduler: the trained agent of ``tests/golden`` schedules the
    paper queues on the card; its greedy actions must equal the same agent's
    on the CPU, and every schedule must satisfy the problem's constraints.
@@ -250,6 +255,9 @@ GOLDEN = ROOT / "tests" / "golden" / "train_agent_proxy_v1.npz"
 # H100 SXM data sheet, dense: HBM3 rate; bf16 tensor-core and f32 CUDA-core peaks
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+# the exp unit (MUFU ex2): 16 a clock on each of the 132 SMs, at the 1.83
+# GHz at which 989 TFLOP/s is 132 SMs x 4,096 flops a clock
+EXP_PER_S = 132 * 16 * 1.83e9
 # Each output row (one query head of one token, or one token's logits) is
 # held against the plain version's by its relative L2 error
 # ||out - ref|| / ||ref||, which scales with the row: a bf16 row that attends
@@ -292,9 +300,8 @@ def phase_card(torch):
     reports = build.build_all()
     say(f"[0] built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s")
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"    {name}: {line.strip()}")
+        for line in build.ptxas_report(log):
+            say(f"    {name}: {line}")
     return card
 
 
@@ -358,9 +365,14 @@ def show(rec: dict) -> str:
     return " ".join(f"{'kernel_ms' if k == 'ms' else k}={v}" for k, v in rec.items())
 
 
-def bound(byts: float, ops: float, dtype_name: str) -> tuple[float, str]:
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(byts: float, ops: float, dtype_name: str, exps: float = 0.0) -> tuple[float, str]:
+    """The least time of the work in ms and what sets it: its bytes over the
+    memory rate, its operations over the peak for their type, or its
+    exponentials (one ``ex2`` each) over the exp unit's rate."""
+    times = {"bytes": byts / HBM_BYTES_PER_S, "operations": ops / PEAK_OPS_PER_S[dtype_name],
+             "exp": exps / EXP_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def decode_case(torch, dtype, lengths, smax=32768, hq=32, hkv=8, d=128, timed=True):
@@ -398,7 +410,10 @@ def decode_case(torch, dtype, lengths, smax=32768, hq=32, hkv=8, d=128, timed=Tr
 
 
 def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, batch=1, causal=True,
-               timed=True):
+               timed=True, rising=False):
+    """``rising``: scores that grow along the keys (every q row leans on one
+    direction that the keys take more of the later they come), so that a
+    row's max moves in every kv tile, the last included."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -406,21 +421,27 @@ def flash_case(torch, dtype, sq=8192, skv=8192, hq=32, hkv=8, d=128, batch=1, ca
 
     name = str(dtype).split(".")[1]
     gen = torch.Generator("cuda").manual_seed(12)
-    q = torch.randn((batch, sq, hq, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((batch, skv, hkv, d), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((batch, sq, hq, d), generator=gen, device="cuda")
+    k = torch.randn((batch, skv, hkv, d), generator=gen, device="cuda")
     v = torch.randn((batch, skv, hkv, d), generator=gen, device="cuda").to(dtype)
+    if rising:
+        ramp = torch.linspace(0, 3 * d ** 0.5, skv, device="cuda")[None, :, None, None]
+        q, k = q.abs(), 0.5 * k + ramp * d ** -0.5
+    q, k = q.to(dtype), k.to(dtype)
     out = flash_attention(q, k, v, causal=causal)
     ref = flash_attention_plain(q, k, v, causal=causal)
-    what = f"flash_attention {name} B={batch} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} causal={causal}"
+    what = (f"flash_attention {name} B={batch} Sq={sq} Skv={skv} Hq={hq} Hkv={hkv} "
+            f"causal={causal}{' rising' if rising else ''}")
     rec = compare(torch, out, ref, name, what)
     if timed:
         esize = q.element_size()
         # visible (q, k) pairs of one sequence and head
         pairs = (float(np.clip(np.arange(sq) + (skv - sq) + 1, 0, skv).sum()) if causal
                  else float(sq * skv))
+        # two products of 2 D flops and one exponential a pair and q head
         rec["bound_ms"], rec["bound_by"] = bound(
             batch * (2 * sq * hq * d + 2 * skv * hkv * d) * esize, 4.0 * batch * hq * d * pairs,
-            name)
+            name, exps=float(batch * hq) * pairs)
         rec["ms"] = time_graph_ms(torch, lambda: flash_attention(q, k, v, causal=causal),
                                   10 if name == "bfloat16" else 2)
         rec["plain_ms"] = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal=causal), 1)
@@ -524,10 +545,27 @@ def kernels_d64(torch, recs) -> None:
             recs["flash_attention"]["d64"] = rec
         flash_case(torch, dtype, sq=512, skv=4096, hq=h, hkv=h, d=64, batch=2, causal=False)
         free(torch)
-    for sq, skv in ((127, 1000), (1000, 127), (129, 129)):
+    # the tiles of the kernel at heads of 64, one row short and one row over
+    # (Sq > Skv: causal rows with no visible key give 0): kv tiles of 128
+    # rows; q tiles of 128 rows on a small grid (two consumer warpgroups) and
+    # of 192 on a grid of two blocks an SM or more (three; 4 x 72 heads);
+    # and a head group of 8
+    for sq, skv in ((127, 1000), (1000, 127), (129, 129), (127, 129), (129, 255), (257, 383)):
         for causal in (True, False):
             flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=8, hkv=2, d=64, batch=2,
                        causal=causal, timed=False)
+    for sq, skv in ((191, 193), (193, 129), (385, 383)):
+        for causal in (True, False):
+            flash_case(torch, torch.bfloat16, sq=sq, skv=skv, hq=72, hkv=8, d=64, batch=4,
+                       causal=causal, timed=False)
+    flash_case(torch, torch.bfloat16, sq=300, skv=1000, hq=16, hkv=2, d=64, batch=2,
+               causal=True, timed=False)
+    # a row's max moving at every kv tile (the conditional rescale of O), on
+    # both grids
+    for batch in (2, 16):
+        for causal in (True, False):
+            flash_case(torch, torch.bfloat16, sq=1000, skv=1000, hq=h, hkv=h, d=64, batch=batch,
+                       causal=causal, timed=False, rising=True)
     for dtype in (torch.bfloat16, torch.float32):
         self_rec = decode_case(torch, dtype, D64_SELF_LENGTHS, smax=8192, hq=h, hkv=h, d=64)
         cross_rec = decode_case(torch, dtype, D64_CROSS_LENGTHS, smax=4096, hq=h, hkv=h, d=64)

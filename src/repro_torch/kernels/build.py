@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -83,6 +84,29 @@ def build_all(names=tuple(_ENTRY)) -> dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def ptxas_report(log: str) -> list[str]:
+    """ptxas's lines in a build's log: each kernel's name (as
+    ``name<template arguments>``), then its registers and spills, and any
+    warning (a wgmma serialised, a setmaxnreg ignored)."""
+    out = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            # a mangled name in the package's namespace: its length, then itself
+            m = re.search(r"repro_torch(\d+)", line)
+            if m:
+                name = line[m.end():m.end() + int(m[1])]
+                targs = line[m.end() + int(m[1]):].split("EEv")[0]
+                dtype = {"If": ["float"], "I13__nv_bfloat16": ["bfloat16"]}
+                args = next((v for k, v in dtype.items() if targs.startswith(k)), []) + \
+                    re.findall(r"Li(\d+)E", targs)
+                out.append(f"{name}<{', '.join(args)}>:" if args else f"{name}:")
+            else:
+                out.append(line.strip())
+        elif any(w in line for w in ("registers", "spill", "arning", "Performance Loss")):
+            out.append(line.strip())
+    return out
 
 
 def load(name: str):

@@ -212,6 +212,75 @@ def test_flash_kernel_at_d64(card, dtype, Sq, Skv, causal):
     _assert_rows_close(out, flash_attention_plain(q, k, v, causal=causal), dtype)
 
 
+def _check_flash(q, k, v, causal):
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    Sq, Skv = q.shape[1], k.shape[1]
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0), "rows with no visible key give 0"
+    _assert_rows_close(out, flash_attention_plain(q, k, v, causal=causal), q.dtype)
+
+
+# the bf16 kernel at heads of 64: its kv tiles of 128 rows and its q tiles
+# of 128 rows (two consumer warpgroups, on a small grid) or 192 (three, on a
+# grid of at least two blocks an SM: 288 heads of 4 x 72 here), one row
+# short of a tile and one row over on both axes, Sq != Skv, causal and not
+# (Sq > Skv: causal rows with no visible key give exactly 0)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Sq,Skv", [(127, 129), (129, 127), (191, 193), (193, 191), (255, 257),
+                                    (385, 383), (128, 1000), (1000, 383)])
+@pytest.mark.parametrize("B,Hq,Hkv", [(2, 4, 2), (4, 72, 8)])
+def test_flash_kernel_d64_tile_edges(card, B, Hq, Hkv, Sq, Skv, causal):
+    rng = np.random.default_rng(Sq * 13 + Skv * 5 + Hq + causal)
+    D = 64
+    q = _randn(rng, (B, Sq, Hq, D), torch.bfloat16, card)
+    k = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    v = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    _check_flash(q, k, v, causal)
+
+
+# a head group of 8 at heads of 64 (16 q heads on 2 kv heads)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_d64_head_group_of_8(card, causal):
+    rng = np.random.default_rng(808 + causal)
+    B, Sq, Skv, Hq, Hkv, D = 2, 300, 700, 16, 2, 64
+    q = _randn(rng, (B, Sq, Hq, D), torch.bfloat16, card)
+    k = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    v = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    _check_flash(q, k, v, causal)
+
+
+# scores that grow along the keys: every q row leans on one direction that
+# later keys take more of, so a row's max moves in every kv tile, the last
+# included (O and the row sum are rescaled only where the max moved)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,B,Hq,Hkv", [(64, 2, 4, 2), (64, 4, 72, 8), (128, 2, 4, 2)])
+def test_flash_kernel_rising_max(card, D, B, Hq, Hkv, causal):
+    rng = np.random.default_rng(900 + D + Hq + causal)
+    Sq, Skv = 600, 1000
+    q = np.abs(rng.standard_normal((B, Sq, Hq, D)))
+    ramp = np.linspace(0.0, 3.0, Skv)[None, :, None, None]
+    k = 0.5 * rng.standard_normal((B, Skv, Hkv, D)) + ramp
+    v = rng.standard_normal((B, Skv, Hkv, D))
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(card, torch.bfloat16) for x in (q, k, v))
+    _check_flash(q, k, v, causal)
+
+
+# scores near bf16's large end: q and k scaled by 30, scores in the
+# thousands (a scale folded in the wrong place overflows the exponential)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernel_large_scores(card, D, causal):
+    rng = np.random.default_rng(1000 + D + causal)
+    B, Sq, Skv, Hq, Hkv = 2, 333, 555, 4, 2
+    q = _randn(rng, (B, Sq, Hq, D), torch.float32, card) * 30
+    k = _randn(rng, (B, Skv, Hkv, D), torch.float32, card) * 30
+    v = _randn(rng, (B, Skv, Hkv, D), torch.bfloat16, card)
+    _check_flash(q.bfloat16(), k.bfloat16(), v, causal)
+
+
 def test_flash_kernel_refuses_unaligned_tensors(card):
     """TMA reads from a 16-byte boundary: a view one element in is refused."""
     q = torch.zeros((2, 128, 8, 128), dtype=torch.bfloat16, device=card)

@@ -20,11 +20,12 @@ second loses the partial of a share's last pair where that is not its
 first (the slot keeps whatever the workspace held); the third shortens
 every share of more than 8 tiles
 by its last tile in the one loop count that both the producer and the
-consumer warp follow.  The flash kernel's ring has a producer loop and a
-consumer loop, so its lost tile is planted in both (the producer never loads
-it, the consumers never wait for it).  The second flash fault leaves the
-tile that crosses the causal diagonal unmasked: rows then see up to 127
-later keys.  The first RMSNorm fault drops the scalar tail of each row from
+consumer warp follow.  The flash kernel at heads of 128 has a producer
+loop and a consumer loop, so its lost tile is planted in both (the producer
+never loads it, the consumers never wait for it); the kernel at heads of 64
+counts its tiles once for both.  The second flash fault, in each kernel,
+leaves the tile that crosses the causal diagonal unmasked: rows then see up
+to 127 later keys.  The first RMSNorm fault drops the scalar tail of each row from
 its sum of squares, which moves a row by some 4e-4: the 8192 x 4096 rows
 have no tail and the bf16 bound of 1e-2 cannot see it, so only the ragged
 f32 1000 x 4101 case can catch it.  The second leaves the rows of a ragged
@@ -69,6 +70,14 @@ MUTANTS = {
         "src/repro_torch/csrc/flash_attention.cu",
         (("      const bool masked = (k0 + kBK > Skv) || (causal && k0 + kBK - 1 > warp_row0);\n",
           "      const bool masked = (k0 + kBK > Skv);\n"),)),
+    "flash_attention: at heads of 64, q tiles that see more than 16 kv tiles skip the last one": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        (("  const int n_kt = max(0, (kv_end + kBK - 1) / kBK);\n",
+          "  const int n_kt = max(0, (kv_end + kBK - 1) / kBK) - (kv_end > 16 * kBK);\n"),)),
+    "flash_attention: at heads of 64, the kv tile that crosses the causal diagonal is not masked": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        (("  if ((k0 + kBK > Skv) || (causal && k0 + kBK - 1 > row0))\n",
+          "  if ((k0 + kBK > Skv))\n"),)),
     "rmsnorm: the scalar tail of each row is left out of its sum of squares": (
         "src/repro_torch/csrc/rmsnorm.cu",
         (("    for (int i = tail + t; i < d; i += tpr) {\n      const float v = to_f32(xr[i]);\n",

@@ -8,8 +8,17 @@ Each variant is the kernel's source in ``src/repro_torch/csrc`` of this
 checkout with a few lines replaced (the ``variants`` of ``KERNELS`` below),
 built with the package's own nvcc flags into a temporary directory and
 called through its C launcher.  ``--parent DIR`` adds the kernel of another
-checkout (for example a ``git archive`` of the parent commit) as one more
-variant, called as that checkout's wrapper calls it.  At each of the
+checkout as one more variant, called as that checkout's wrapper calls it;
+to hold a change against the commit before it, unpack that commit's
+sources into a git-ignored directory of this checkout first:
+
+    mkdir -p experiments/parent
+    git archive HEAD~1 src/repro_torch | tar -x -C experiments/parent
+    python3 tools/kernel_variants.py --kernel flash_attention --parent experiments/parent
+
+(the ``tar`` lands ``experiments/parent/src/repro_torch``).  A variant
+that does not build, or does not match the plain version, is reported and
+left out of the timing, and the run then exits non-zero.  At each of the
 kernel's shapes (the main path's, from ``chip_smoke.py`` phase 1) every
 variant is first held against the plain version (each output row to
 ||out - ref|| / ||ref|| <= 1e-2 in bf16), then timed in eight rounds, every
@@ -35,6 +44,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,14 +58,45 @@ ROW_TOL = 1e-2
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
+        # the choices of the kernel at heads of 64 (``Fwd<64>``), and the two
+        # that could carry to heads of 128 (its own kernel) timed there
         "variants": {
-            "as committed (ping-pong, 2 stages)": [],
-            "no ping-pong": [
-                ('  asm volatile("bar.sync %0, 256;\\n" ::"r"(id) : "memory");\n', ""),
-                ('  asm volatile("bar.arrive %0, 256;\\n" ::"r"(id) : "memory");\n', ""),
-            ],
-            "3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
-            "4 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 4;")],
+            "as committed (D = 64: 3 warpgroups where the grid fills the card twice, else 2; "
+            "ping-pong; 3 or 4 stages; 2^x of 1 n-block in 8 on the FMA pipe at 2)": [],
+            "D = 64: 2 warpgroups on every grid": [(
+                "kMaxWG = 3;       // consumer warpgroups of 64 q rows on a large grid",
+                "kMaxWG = 2;       // consumer warpgroups of 64 q rows on a large grid")],
+            "D = 64: 2 stages at 3 warpgroups": [(
+                "kStages3 = 3;     // K/V ring depth with 3 consumer warpgroups",
+                "kStages3 = 2;     // K/V ring depth with 3 consumer warpgroups")],
+            "D = 64: 3 stages at 2 warpgroups": [(
+                "kStages2 = 4;     // K/V ring depth with 2 consumer warpgroups",
+                "kStages2 = 3;     // K/V ring depth with 2 consumer warpgroups")],
+            "D = 64: no ping-pong": [("  named_bar_sync(1 + wg);\n}", "}"),
+                                     ("  named_bar_arrive(1 + (wg + 1) % W);\n}", "}")],
+            "D = 64: 2^x on the exp unit only (at 2 warpgroups)": [(
+                "  static constexpr int kPoly2 = 8;", "  static constexpr int kPoly2 = 0;")],
+            "D = 64: 2^x of 1 n-block in 8 on the FMA pipe at 3 warpgroups": [(
+                "  static constexpr int kPoly3 = 0;", "  static constexpr int kPoly3 = 8;")],
+            "D = 64: 2^x of 1 n-block in 4 on the FMA pipe at 3 warpgroups": [(
+                "  static constexpr int kPoly3 = 0;", "  static constexpr int kPoly3 = 4;")],
+            "D = 64: rescale decided by each thread": [(
+                "  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {",
+                "  if (alpha[0] != 1.f || alpha[1] != 1.f) {")],
+            "D = 64: heads the grid's fast axis (the D = 128 kernel's order)": [
+                ("  const int bh = blockIdx.y, b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);\n"
+                 "  const int q0 = (gridDim.x - 1 - blockIdx.x) * T::kBQ;\n",
+                 "  const int bh = blockIdx.x, b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);\n"
+                 "  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::kBQ;\n"),
+                ("  dim3 grid((Sq + T::kBQ - 1) / T::kBQ, B * Hq);\n",
+                 "  dim3 grid(B * Hq, (Sq + T::kBQ - 1) / T::kBQ);\n")],
+            "D = 128: q tiles the grid's fast axis": [
+                ("  const int bh = blockIdx.x, b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);\n"
+                 "  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;   // most work first\n",
+                 "  const int bh = blockIdx.y, b = bh / Hq, hq = bh % Hq, hk = hq / (Hq / Hkv);\n"
+                 "  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;   // most work first\n"),
+                ("  dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);\n",
+                 "  dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);\n")],
         },
         "reps": 20,
     },
@@ -118,25 +159,27 @@ def build_variant(build, text: str, headers: Path, out_dir: Path) -> tuple[Path,
     run = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
                          capture_output=True, text=True)
     if run.returncode != 0:
-        raise SystemExit(f"kernel_variants: nvcc failed in {out_dir}:\n{run.stdout}{run.stderr}")
-    report = " | ".join(ln.strip() for ln in (run.stdout + run.stderr).splitlines()
-                        if any(w in ln for w in ("registers", "spill", "arning")))
+        raise RuntimeError(f"nvcc failed:\n{(run.stdout + run.stderr)[-3000:]}")
+    report = " | ".join(build.ptxas_report(run.stdout + run.stderr))
     return lib, time.perf_counter() - t0, report
 
 
 def flash_cases(torch, build):
     """The llama3-8b prefill shape: B=1, Sq=Skv=8192, 32/8 heads, causal;
     seamless-m4t's encoder: B=16, Sq=Skv=4096, 16/16 heads of 64,
-    non-causal."""
+    non-causal, and its cross-attention in teacher forcing, B=2, 512
+    queries against 4096 frames."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
-    shapes = {"B=1 Sq=Skv=8192 32/8 heads causal": (1, 8192, 32, 8, 128, True),
-              "B=16 Sq=Skv=4096 16/16 heads of 64 non-causal": (16, 4096, 16, 16, 64, False)}
+    shapes = {"B=1 Sq=Skv=8192 32/8 heads causal": (1, 8192, 8192, 32, 8, 128, True),
+              "B=16 Sq=Skv=4096 16/16 heads of 64 non-causal": (16, 4096, 4096, 16, 16, 64, False),
+              "B=2 Sq=512 Skv=4096 16/16 heads of 64 non-causal": (2, 512, 4096, 16, 16, 64,
+                                                                   False)}
     cases = {}
-    for case, (B, S, hq, hkv, d, causal) in shapes.items():
+    for case, (B, sq, skv, hq, hkv, d, causal) in shapes.items():
         gen = torch.Generator("cuda").manual_seed(12)
-        q = torch.randn((B, S, hq, d), generator=gen, device="cuda").bfloat16()
-        k = torch.randn((B, S, hkv, d), generator=gen, device="cuda").bfloat16()
+        q = torch.randn((B, sq, hq, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((B, skv, hkv, d), generator=gen, device="cuda").bfloat16()
         v = torch.randn_like(k)
         out = torch.empty_like(q)
 
@@ -276,12 +319,20 @@ def main() -> int:
         parent_rule = "shares" if "def grid_blocks" in ops.read_text() else "chunks"
 
     symbol, argtypes = build._ENTRY[args.kernel]
-    fns = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, text) in enumerate(sources.items()):
-            headers = (Path(args.parent) if name.startswith("parent") else ROOT) / \
-                "src/repro_torch/csrc"
-            lib, secs, report = build_variant(build, text, headers, Path(tmp) / f"v{i}")
+    fns, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(sources)) as pool:
+        # every variant's nvcc at once
+        builds = {name: pool.submit(build_variant, build, text,
+                                    (Path(args.parent) if name.startswith("parent") else ROOT)
+                                    / "src/repro_torch/csrc", Path(tmp) / f"v{i}")
+                  for i, (name, text) in enumerate(sources.items())}
+        for name, job in builds.items():
+            try:
+                lib, secs, report = job.result()
+            except RuntimeError as e:
+                print(f"[build] {name}: does not build; {e}", flush=True)
+                failed.append(name)
+                continue
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             fns[name] = fn
@@ -312,8 +363,10 @@ def main() -> int:
                 rel = torch.where(diff == 0, torch.zeros_like(diff), diff / size).max().item()
                 errs[name] = rel
                 if not rel <= ROW_TOL and name not in spec.get("unchecked", ()):
-                    raise SystemExit(f"kernel_variants: {name} at {case}: row relative error "
-                                     f"{rel:.3e}")
+                    failed.append(name)
+                    print(f"[time] {args.kernel} {case}: {name}: WRONG, row relative error "
+                          f"{rel:.3e}", flush=True)
+                    del runs[name]
 
             def time_ms(fn, name) -> float:
                 """Device time of one launch: ``reps`` launches replayed from a
@@ -350,7 +403,9 @@ def main() -> int:
                   f"tensor maps encoded), f32 {host['float32']:.2f} (none)", flush=True)
             result["host_us"] = host
     print(json.dumps(result), flush=True)
-    return 0
+    if failed:
+        print(f"kernel_variants: failed: {', '.join(dict.fromkeys(failed))}", flush=True)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":
