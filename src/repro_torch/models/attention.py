@@ -228,19 +228,21 @@ def _write_row(cache: dict, k_t, v_t, pos) -> None:
 
 def init_kv_cache(cfg, batch: int, max_len: int, layers: int | None = None,
                   device="cuda") -> dict:
-    """Zero K/V cache (B, Smax, Hkv, D), or (L, B, Smax, Hkv, D) with ``layers``."""
+    """Zero K/V cache (B, Smax, Hkv, D), or (L, B, Smax, Hkv, D) with ``layers``;
+    a profiler range ``kv_cache.init``."""
     lead = () if layers is None else (layers,)
     shape = (*lead, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     dt = pdtype(cfg)
     mesh = active_mesh()
-    if mesh is not None:   # a DTensor laid out as the cache spec tree says
-        kv_axis = None if cfg.n_kv_heads < cfg.n_heads else "act_kv_heads"
-        pl = placements_for((*(None,) * len(lead), "act_batch", "act_seq_cache", kv_axis, None),
-                            shape, mesh)
-        return {n: dtensor_zeros(shape, dtype=dt, device_mesh=mesh, placements=pl)
-                for n in ("k", "v")}
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    with torch.profiler.record_function("kv_cache.init"):
+        if mesh is not None:   # a DTensor laid out as the cache spec tree says
+            kv_axis = None if cfg.n_kv_heads < cfg.n_heads else "act_kv_heads"
+            pl = placements_for((*(None,) * len(lead), "act_batch", "act_seq_cache", kv_axis,
+                                 None), shape, mesh)
+            return {n: dtensor_zeros(shape, dtype=dt, device_mesh=mesh, placements=pl)
+                    for n in ("k", "v")}
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def attn_decode(p: dict, x_t: torch.Tensor, cache: dict, pos: torch.Tensor, cfg, *,

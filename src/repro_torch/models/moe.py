@@ -308,12 +308,15 @@ def _moe_decode(p: dict, x_t: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def _grouped(x_t, weights, ids, wg, wu, wd):
-    """The routed experts' output (B, M), grouped by expert: one host sync."""
+    """The routed experts' output (B, M), grouped by expert: the expert
+    counts are read on the host (``bincount`` on CUDA first reads its
+    input's min and max), inside a profiler range ``moe.host_sync``."""
     B, M = x_t.shape
     K = ids.shape[1]
     flat = ids.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=wg.shape[0]).tolist()   # the host sync
+    with torch.profiler.record_function("moe.host_sync"):
+        counts = torch.bincount(flat, minlength=wg.shape[0]).tolist()
     xs = x_t[order // K]                                         # (B*K, M), by expert
     ys = torch.empty_like(xs)
     start = 0

@@ -15,7 +15,10 @@ A tenant's state must be made on its own stream (or ``record_stream``ed
 onto it) so the caching allocator never hands a live buffer to another
 stream; each run also makes every tenant stream wait for the work queued
 on the current stream before it, which covers set-up done there.  Finish
-times are read with ``perf_counter`` after the synchronise.
+times are read with ``perf_counter`` after the synchronise.  For the
+profiler, each macro-step of :class:`FusedCoRunner` is a range
+``executor.macro_step`` and its synchronise a range ``executor.barrier``
+inside it.
 
 One difference from the reference: a tenant that has finished is not
 stepped again.  The reference's fused program keeps advancing every
@@ -97,15 +100,17 @@ class FusedCoRunner:
         t0 = time.perf_counter()
         active = list(range(len(self.tenants)))
         while active:
-            states = self.macro(states, [i in active for i in range(len(self.tenants))])
-            _finish(self.tenants)
-            now = time.perf_counter() - t0
-            for i in list(active):
-                t = self.tenants[i]
-                t.steps_done += self.quanta[i]
-                if t.steps_done >= self.total_steps[t.name]:
-                    finish[t.name] = now
-                    active.remove(i)
+            with torch.profiler.record_function("executor.macro_step"):
+                states = self.macro(states, [i in active for i in range(len(self.tenants))])
+                with torch.profiler.record_function("executor.barrier"):
+                    _finish(self.tenants)
+                now = time.perf_counter() - t0
+                for i in list(active):
+                    t = self.tenants[i]
+                    t.steps_done += self.quanta[i]
+                    if t.steps_done >= self.total_steps[t.name]:
+                        finish[t.name] = now
+                        active.remove(i)
         for t, st in zip(self.tenants, states):
             t.state = st
         return finish

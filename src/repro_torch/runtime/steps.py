@@ -26,9 +26,12 @@ one-device step.
 - :func:`make_prefill_step`, :func:`make_decode_step`: over
   :func:`repro_torch.models.model.prefill` and ``decode_step``; the
   encoder-decoder's prefill step is the encoder pass and the
-  cross-attention K/V.
+  cross-attention K/V.  Each call of a serve step is a profiler range,
+  ``step.prefill`` or ``step.decode``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -59,6 +62,17 @@ def _rules_for(cfg, rules=None):
 
 def _ep_ok(cfg) -> bool:
     return cfg.moe is None or cfg.moe.n_routed % MODEL_AXIS_SIZE == 0
+
+
+def _span(name: str):
+    """A step run inside a profiler range ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def _check(what: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
@@ -255,6 +269,7 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda", *, mesh=None,
         vec = specs_to_shardings(("act_batch",), mesh, rules,
                                  torch.empty((batch,), device="meta"))   # batch 1 replicated
 
+        @_span("step.decode")
         def sharded(params, cache, token, pos):
             token, pos = shard(token, vec), shard(pos, vec)
             with use_mesh_rules(mesh, rules), implicit_replication():
@@ -271,6 +286,7 @@ def make_decode_step(cfg, batch: int, max_len: int, device="cuda", *, mesh=None,
             params, state_shardings(cfg, mesh, rules, with_opt=False)[1])
         return sharded
 
+    @_span("step.decode")
     def step(params, cache, token, pos):
         _check("token", token, (batch,), device)
         _check("pos", pos, (batch,), device)
@@ -311,10 +327,12 @@ def make_prefill_step(cfg, shape, device="cuda", *, mesh=None, rules=None):
             lens = specs_to_shardings(("act_batch",), mesh, rules,
                                       torch.empty((B,), device="meta"))
 
+            @_span("step.prefill")
             def sharded(params, frames, enc_lens):
                 with use_mesh_rules(mesh, rules), implicit_replication():
                     return encode(params, shard(frames, fr), shard(enc_lens, lens))
         else:
+            @_span("step.prefill")
             def sharded(params, tokens):
                 with use_mesh_rules(mesh, rules), implicit_replication():
                     return prefill(params, shard(tokens, tok), cfg, max_len=S)
@@ -324,6 +342,7 @@ def make_prefill_step(cfg, shape, device="cuda", *, mesh=None, rules=None):
         return sharded
 
     if cfg.enc_dec:
+        @_span("step.prefill")
         def checked(params, frames, enc_lens):
             _check("frames", frames, (B, *frames.shape[1:2], cfg.d_model), device)
             _check("enc_lens", enc_lens, (B,), device)
@@ -331,6 +350,7 @@ def make_prefill_step(cfg, shape, device="cuda", *, mesh=None, rules=None):
 
         return checked
 
+    @_span("step.prefill")
     def step(params, tokens):
         _check("tokens", tokens, (B, S), device)
         return prefill(params, tokens, cfg, max_len=S)
